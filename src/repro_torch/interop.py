@@ -1,0 +1,48 @@
+"""Carry a solver's state across from numpy arrays.
+
+For a solver, the system and the preconditioner's state are what weights
+are to a model.  These functions take them as numpy arrays — for example
+the ``data`` of a :mod:`repro` preconditioner, converted with
+``numpy.asarray`` — so that both packages can apply the same M⁻¹.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch.core import precond as _precond
+
+
+def _tensor(v, dev):
+    return torch.from_numpy(np.array(v, order="C")).to(dev)   # a copy
+
+
+def precond_from_numpy(kind: str, data, *, device=None
+                       ) -> _precond.Preconditioner:
+    """The port's :class:`~repro_torch.core.precond.Preconditioner` from a
+    named preconditioner's arrays: ``(dinv,)`` for ``"jacobi"``;
+    ``(lu, piv)`` for ``"block_jacobi"``, with ``lu`` (k, nb, nb) and
+    ``piv`` (k, nb) as ``jax.scipy.linalg.lu_factor`` returns them.
+
+    Those pivots are 0-based; ``torch.linalg.lu_solve`` takes 1-based
+    LAPACK pivots, so they are shifted by one here.
+    """
+    dev = _device.resolve(device)
+    if kind == "jacobi":
+        (dinv,) = data
+        return _precond.from_data(kind, (_tensor(dinv, dev),))
+    if kind == "block_jacobi":
+        lu, piv = data
+        piv1 = _tensor(np.asarray(piv).astype(np.int32) + 1, dev)
+        return _precond.from_data(kind, (_tensor(lu, dev), piv1))
+    raise ValueError(f"unknown preconditioner {kind!r}; expected 'jacobi' "
+                     "or 'block_jacobi'")
+
+
+def system_from_numpy(a, b, x0=None, *, device=None):
+    """``(a, b, x0)`` as contiguous tensors on ``device`` (``None`` →
+    ``"cuda"``); ``x0`` stays ``None`` when not given."""
+    dev = _device.resolve(device)
+    return (_tensor(a, dev), _tensor(b, dev),
+            None if x0 is None else _tensor(x0, dev))

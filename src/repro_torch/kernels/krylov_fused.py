@@ -1,0 +1,137 @@
+"""Fused Krylov vector kernels: wrappers of ``csrc/krylov_fused.cu``.
+
+Port of :mod:`repro.kernels.krylov_fused`'s ``fused_cg_update`` and
+``fused_pipelined_dots`` (their ``_auto`` forms: any ``n``).  A CG step's
+x += αp; r −= αAp; ⟨r,r⟩ is one pass over four vectors in place of three
+separate passes, and pipelined CG's three inner products share one read.
+
+Dispatch is by the tensors' device and nothing else: a CUDA tensor
+launches the kernel (or raises), a CPU tensor takes the plain version in
+:mod:`repro_torch.kernels.ref`.  ``LAUNCHES`` counts kernel launches per
+wrapper, so a run can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+
+LAUNCHES = {"fused_cg_update": 0, "fused_pipelined_dots": 0}
+
+_LIB_NAME = "krylov_fused"
+_P = ctypes.c_void_p
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library(_LIB_NAME)
+    if not getattr(lib, "_declared", False):
+        lib.krylov_fused_cg_update.argtypes = [_P] * 9 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P]
+        lib.krylov_fused_cg_update.restype = ctypes.c_int
+        lib.krylov_fused_pipelined_dots.argtypes = [_P] * 5 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P]
+        lib.krylov_fused_pipelined_dots.restype = ctypes.c_int
+        lib.krylov_error_string.argtypes = [ctypes.c_int]
+        lib.krylov_error_string.restype = ctypes.c_char_p
+        for fn in ("krylov_threads", "krylov_max_blocks"):
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.threads, lib.max_blocks = (lib.krylov_threads(),
+                                       lib.krylov_max_blocks())
+        lib._declared = True
+    return lib
+
+
+def _blocks(lib, n: int) -> int:
+    """Grid size: one thread per element up to the partials buffer's size
+    (a function of n alone, so reruns reduce in the same order)."""
+    return min(-(-n // lib.threads), lib.max_blocks)
+
+
+def _check_vectors(names: str, *vs) -> None:
+    """Same device, float32, 1-D, equal nonzero lengths, contiguous."""
+    names = names.split()
+    for name, v in zip(names, vs):
+        if not isinstance(v, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(v)}")
+    dev, n = vs[0].device, vs[0].shape[0] if vs[0].ndim == 1 else -1
+    for name, v in zip(names, vs):
+        if v.device != dev:
+            raise ValueError(f"{name} is on {v.device}, {names[0]} on {dev}")
+        if v.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {v.dtype}")
+        if v.ndim != 1 or v.shape[0] != n or n == 0:
+            raise ValueError(f"{name} must be 1-D of the same nonzero length "
+                             f"as {names[0]}; got shape {tuple(v.shape)}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err:
+        msg = lib.krylov_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({msg})")
+
+
+def _on_cuda(v: torch.Tensor) -> bool:
+    if v.device.type == "cpu":
+        return False
+    if v.device.type != "cuda":
+        raise ValueError(f"no kernel for device {v.device}")
+    return True
+
+
+def fused_cg_update(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
+                    ap: torch.Tensor, alpha):
+    """``(x + αp, r − αAp, ⟨r', r'⟩)`` in one pass.  On CUDA, ``alpha`` is a
+    0-d float32 tensor on the same device (the kernel reads it from device
+    memory); ``rr`` comes back as a 0-d tensor."""
+    _check_vectors("x r p ap", x, r, p, ap)
+    if not _on_cuda(x):
+        return _ref.fused_cg_update(x, r, p, ap, alpha)
+    if not (isinstance(alpha, torch.Tensor) and alpha.ndim == 0
+            and alpha.dtype == torch.float32 and alpha.device == x.device):
+        raise TypeError("alpha must be a 0-d float32 tensor on "
+                        f"{x.device}, got {alpha!r}")
+    lib = _lib()
+    n = x.shape[0]
+    blocks = _blocks(lib, n)
+    xo, ro = torch.empty_like(x), torch.empty_like(r)
+    partials = torch.empty(blocks, dtype=torch.float32, device=x.device)
+    rr = torch.empty((), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.krylov_fused_cg_update(
+        x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
+        alpha.data_ptr(), xo.data_ptr(), ro.data_ptr(), partials.data_ptr(),
+        rr.data_ptr(), n, blocks, x.device.index, stream)
+    _raise_on(err, lib, "fused_cg_update")
+    LAUNCHES["fused_cg_update"] += 1
+    return xo, ro, rr
+
+
+def fused_pipelined_dots(r: torch.Tensor, u: torch.Tensor, w: torch.Tensor):
+    """``(⟨r,u⟩, ⟨w,u⟩, ⟨r,r⟩)`` in one read of three vectors, as three 0-d
+    float32 tensors."""
+    _check_vectors("r u w", r, u, w)
+    if not _on_cuda(r):
+        return _ref.fused_pipelined_dots(r, u, w)
+    lib = _lib()
+    n = r.shape[0]
+    blocks = _blocks(lib, n)
+    partials = torch.empty(3 * blocks, dtype=torch.float32, device=r.device)
+    out = torch.empty(3, dtype=torch.float32, device=r.device)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = lib.krylov_fused_pipelined_dots(
+        r.data_ptr(), u.data_ptr(), w.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), n, blocks, r.device.index, stream)
+    _raise_on(err, lib, "fused_pipelined_dots")
+    LAUNCHES["fused_pipelined_dots"] += 1
+    return out[0], out[1], out[2]

@@ -1,0 +1,109 @@
+"""Layout and device rules of the PyTorch port.
+
+* ``src/repro_torch/`` and ``chip_smoke.py`` import neither ``jax`` nor
+  anything of ``repro`` (AST scan), and the package imports and solves
+  with ``jax`` unimportable.
+* Importing the package and solving on the CPU builds no kernel.
+* Entry points default to the GPU and raise without one.
+* The CLI runs on the CPU with ``--device cpu``.
+"""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import interop
+from repro_torch.core import api
+from repro_torch.launch import solve as cli
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_repro(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), \
+            f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_port_runs_without_jax():
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "from repro_torch.core import api\n"
+        "from repro_torch.kernels import _build, krylov_fused\n"
+        "rng = np.random.default_rng(0)\n"
+        "a = rng.standard_normal((32, 32)).astype(np.float32) "
+        "+ 32 * np.eye(32, dtype=np.float32)\n"
+        "b = rng.standard_normal(32).astype(np.float32)\n"
+        "r = api.solve(a, b, method='bicgstab', backend='cuda', "
+        "device='cpu', return_info=True)\n"
+        "assert bool(r.converged), r\n"
+        "assert not _build._LIBS, 'a CPU solve loaded a kernel library'\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
+        "if sys.modules[m] is not None]\n"
+        "print('OK')\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK"
+
+
+@pytest.fixture
+def no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a GPU")
+
+
+def test_entry_points_default_to_the_gpu_and_raise_without_one(no_gpu):
+    a = np.eye(8, dtype=np.float32) * 2
+    b = np.ones(8, np.float32)
+    for kw in ({}, {"method": "cg"}, {"method": "cg", "backend": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            api.solve(a, b, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.system_from_numpy(a, b)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--n", "16", "--method", "cg"])
+
+
+@pytest.mark.parametrize("method", ["cg", "gmres"])
+def test_cli_runs_on_the_cpu(method, capsys):
+    assert cli.main(["--n", "96", "--method", method, "--backend", "cuda",
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "relative residual" in out and "device=cpu" in out
+
+
+def test_cli_draws_the_reference_system():
+    """Same numpy draws as repro.launch.solve.make_system."""
+    from repro.launch.solve import make_system as ref_make_system
+    for spd in (False, True):
+        a, b = cli.make_system(48, spd=spd, device="cpu")
+        ra, rb = ref_make_system(48, spd=spd)
+        np.testing.assert_array_equal(b.numpy(), rb)
+        np.testing.assert_allclose(a.numpy(), ra, rtol=1e-6, atol=1e-6)
+
+
+def test_cli_exits_nonzero_when_the_residual_is_too_large(capsys):
+    assert cli.main(["--n", "64", "--method", "cg", "--maxiter", "1",
+                     "--device", "cpu"]) == 1
+    assert "residual too large" in capsys.readouterr().out

@@ -6,11 +6,20 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: the hand-written kernels, from ``src/repro_torch/kernels/csrc``;
-3. kernels: each against its plain PyTorch version on the card, at
-   n ∈ {16384, 16384 + 130, 2²⁴} (vectors rtol = atol = 1e-5, dots rtol
-   1e-4), bitwise-repeatable, timed with CUDA events beside the plain
-   version and the memory bound (bytes ÷ 3.35 TB/s, H100 SXM);
+2. build: the hand-written kernels, from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together);
+3. kernels: each fused Krylov kernel against its plain PyTorch version on
+   the card, at n ∈ {16384, 16384 + 130, 2²⁴} (vectors rtol = atol =
+   1e-5, dots rtol 1e-4), bitwise-repeatable, timed with CUDA events
+   beside the plain version and the memory bound (bytes ÷ 3.35 TB/s, H100
+   SXM);
+3b. direct kernels, at the direct path's n = 16384 float32, nb = 128: the
+   LU and Cholesky panel updates at k ∈ {0, n/2, n − 2nb} (on the change
+   they make: atol 1e-5 · its largest entry, rtol 2.5e-7), and the triangular solve for m ∈ {1, 128} right-hand sides
+   on the lower, upper and transposed triangles of real factors (rtol
+   1e-3, atol 1e-3 · max|x|), each bitwise-repeatable and timed beside its
+   plain version, its bound — max(flops ÷ 67 TFLOP/s float32, bytes ÷
+   3.35 TB/s) — and, for the solve, ``torch.linalg.solve_triangular``;
 4. main path: ``api.solve(..., backend="cuda")`` at n = 16384 float32 for
    cg, pipelined_cg (SPD ``a aᵀ/n + 4I``), bicg, bicgstab, gmres (``a + nI``)
    and cg with jacobi / block_jacobi: converged, true relative residual
@@ -18,8 +27,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    on the card, and the kernel launch counters risen; then cg run far
    past its tolerance (≤ 100 iterations) on each backend, six pairs in
    alternating order, for the steady time per iteration;
-5. CLI: ``repro_torch.launch.solve.main`` at n = 16384 with cg on the
-   kernels.
+4b. direct main path: ``api.solve(..., backend="cuda")`` at n = 16384
+   float32 with ``lu`` on ``a + nI`` and on a plain Gaussian matrix (which
+   pivots) and ``cholesky`` on the symmetrized SPD system: the launch
+   counters of the panel-update and triangular-solve kernels risen, and a
+   normwise backward error ‖b − Ax‖∞ / (‖A‖∞‖x‖∞ + ‖b‖∞) (float64) at most
+   10× that of ``backend="ref"`` on the card; factor and apply times, the
+   kernels' share of the factorization, and ``torch.linalg.solve``'s time;
+   then ``factorize`` once and apply twice;
+5. CLI: ``repro_torch.launch.solve.main`` at n = 16384 with cg and with lu
+   on the kernels.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -27,17 +44,20 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device-memory rate
+FP32_FLOPS_PER_S = 67e12             # H100 SXM float32, outside tensor cores
 N_MAIN = 16384
 KERNEL_SIZES = (N_MAIN, N_MAIN + 130, 1 << 24)
 TIMED_LAUNCHES = 200
@@ -54,6 +74,26 @@ KERNEL_RECORD = {
         "replaces": "src/repro/kernels/krylov_fused.py:178",
         "streams": 3},               # r, u, w read
 }
+NB_DIRECT = 128
+DIRECT_TIMED_LAUNCHES = 20
+BACKWARD_ERROR_FACTOR = 10.0
+DIRECT_KERNEL_RECORD = {
+    "lu_panel_update": {
+        "source": "src/repro_torch/kernels/csrc/factor_fused.cu",
+        "replaces": "src/repro/kernels/factor_fused.py:95"},
+    "cholesky_panel_update": {
+        "source": "src/repro_torch/kernels/csrc/factor_fused.cu",
+        "replaces": "src/repro/kernels/factor_fused.py:162"},
+    "trsm": {
+        "source": "src/repro_torch/kernels/csrc/trsm.cu",
+        "replaces": "src/repro/kernels/trsm.py:79"},
+}
+# (method, system, kernels whose counters must rise)
+DIRECT_MAIN_PATH = (
+    ("lu", "dominant", ("lu_panel_update", "trsm")),
+    ("lu", "gaussian", ("lu_panel_update", "trsm")),
+    ("cholesky", "spd", ("cholesky_panel_update", "trsm")),
+)
 # (method, system, precond, kernel whose counter must rise or None)
 MAIN_PATH = (
     ("cg", "spd", None, "fused_cg_update"),
@@ -110,9 +150,11 @@ def phase_card(torch) -> str:
 
 def phase_build() -> None:
     from repro_torch.kernels import _build
+    names = ("krylov_fused", "factor_fused", "trsm")
     t0 = time.perf_counter()
-    for name in ("krylov_fused",):
-        path = _build.build(name)
+    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
+        paths = list(pool.map(_build.build, names))
+    for name, path in zip(names, paths):
         _build.library(name)
         print(f"[build] {name}: {path.relative_to(ROOT)}")
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
@@ -250,6 +292,283 @@ def phase_main_path(torch) -> dict:
     return launches
 
 
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time for the work on the card, in ms, and what sets it:
+    max(flops over the float32 peak, bytes over the memory rate)."""
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _panel_base(torch, kind: str, n: int):
+    """A Gaussian working matrix (LU) or the SPD ``g gᵀ/n + 4I`` (Cholesky)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(len(kind))
+    a = torch.randn(n, n, generator=g, device=dev)
+    if kind == "cholesky_panel_update":
+        a = a @ a.T / n
+        a.diagonal().add_(4.0)
+    return a, g
+
+
+def _panel_step(torch, kind, base, g, k, nb):
+    """``base`` with a factored diagonal block at (k, k), and its inverse,
+    as the factorizations hand them to the kernel."""
+    dev = base.device
+    a = base.clone()
+    eye = torch.eye(nb, device=dev)
+    if kind == "cholesky_panel_update":
+        lkk = torch.linalg.cholesky(a[k:k + nb, k:k + nb])
+        a[k:k + nb, k:k + nb] = lkk
+        return a, torch.linalg.solve_triangular(lkk, eye, upper=False)
+    l11 = torch.tril(torch.randn(nb, nb, generator=g, device=dev), -1) / nb \
+        + eye
+    a[k:k + nb, k:k + nb] = l11 + torch.triu(a[k:k + nb, k:k + nb])
+    return a, torch.linalg.solve_triangular(l11, eye, upper=False,
+                                            unitriangular=True)
+
+
+def panel_update_close(torch, got, want, a_in) -> tuple[bool, float]:
+    """The tolerance of a panel update against its plain version.  The
+    update changes A by far less than A's entries in the SPD case (about
+    1e-3 against a diagonal of 4), so a fixed atol would pass a kernel that
+    skips part of it.  The change itself is held instead: |got − want| ≤
+    1e-5·max|want − a_in| + 2.5e-7·|want| (two float32 ulps of the
+    result).  Returns (ok, atol)."""
+    atol = 1e-5 * float((want - a_in).abs().max())
+    return torch.allclose(got, want, rtol=2.5e-7, atol=atol), atol
+
+
+def _panel_cost(kind: str, n: int, nb: int, k: int) -> tuple[float, float]:
+    """Flops and bytes of one panel update (each input read once, each
+    output written once): the nb-wide solve of the m = n − k − nb
+    off-diagonal columns (rows) plus the rank-nb update of the m × m
+    trailing block, both triangles."""
+    m = n - k - nb
+    flops = 2.0 * m * nb * nb + 2.0 * m * m * nb
+    panel = 3 if kind == "lu_panel_update" else 2   # R, U12, L21 / C, L21
+    return flops, 4.0 * (nb * nb + panel * m * nb + 2 * m * m)
+
+
+def _trsm_cases(torch, n: int):
+    """Triangles of real factors at the main path's size: the unit-lower L
+    and the U of ``a + nI``'s LU, and Cholesky's Lᵀ read as a transposed
+    view (the three solves of the direct path)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(n, n, generator=g, device=dev)
+    spd = a @ a.T / n
+    spd.diagonal().add_(4.0)
+    a.diagonal().add_(float(n))
+    lu = torch.linalg.lu_factor(a).LU
+    chol = torch.linalg.cholesky(spd)
+    del a, spd
+    return {"lower": (lu, False, True), "upper": (lu, True, False),
+            "transposed": (chol.T, True, False)}, g
+
+
+def phase_direct_kernels(torch) -> dict:
+    from repro_torch.kernels import factor_fused, ref, trsm
+    n, nb = N_MAIN, NB_DIRECT
+    record = {}
+    for kind in ("lu_panel_update", "cholesky_panel_update"):
+        kernel, plain = getattr(factor_fused, kind), getattr(ref, kind)
+        base, g = _panel_base(torch, kind, n)
+        for k in (0, n // 2, n - 2 * nb):
+            a, linv = _panel_step(torch, kind, base, g, k, nb)
+            got = kernel(a.clone(), linv, k, nb=nb)
+            again = kernel(a.clone(), linv, k, nb=nb)
+            want = plain(a.clone(), linv, k, nb=nb)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"{kind} k={k}: reruns differ")
+            err = float((got - want).abs().max())
+            ok, atol = panel_update_close(torch, got, want, a)
+            check(ok, f"{kind} k={k}: kernel and plain version differ (max "
+                      f"abs err {err}, atol {atol})")
+            del got, again, want
+            w = a                  # timed calls update w in place
+            ms = time_ms(torch, lambda: kernel(w, linv, k, nb=nb),
+                         DIRECT_TIMED_LAUNCHES)
+            plain_ms = time_ms(torch, lambda: plain(w, linv, k, nb=nb),
+                               DIRECT_TIMED_LAUNCHES)
+            flops, nbytes = _panel_cost(kind, n, nb, k)
+            bound_ms, bound_by = _bound(flops, nbytes)
+            print(f"[direct-kernel] {kind} n={n} nb={nb} k={k} "
+                  f"max_abs_err={err:.3e} bitwise_rerun=True ms={ms:.6f} "
+                  f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} "
+                  f"bound_by={bound_by} flops={flops:.6e} bytes={nbytes:.6e} "
+                  f"achieved_tflops={flops / ms / 1e9:.3f} "
+                  "library_ms=null (no single PyTorch call computes it)")
+            if k == 0:             # the record: the largest step
+                record[kind] = {"max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": None}
+            del a, w
+        del base
+    cases, g = _trsm_cases(torch, n)
+    for mode, (t, upper, unit) in cases.items():
+        kernel = trsm.trsm_upper if upper else trsm.trsm_lower
+        plain = ref.trsm_upper if upper else ref.trsm_lower
+        for m in (1, 128):
+            b = torch.randn(*((n,) if m == 1 else (n, m)), generator=g,
+                            device="cuda")
+            got = kernel(t, b, unit_diagonal=unit)
+            again = kernel(t, b, unit_diagonal=unit)
+            want = plain(t, b, unit_diagonal=unit)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"trsm {mode} m={m}: reruns "
+                                           "differ")
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(bool(torch.isfinite(got).all()) and torch.allclose(
+                got, want, rtol=1e-3, atol=1e-3 * scale),
+                f"trsm {mode} m={m}: kernel and plain version differ (max "
+                f"abs err {err}, max |x| {scale})")
+            ms = time_ms(torch, lambda: kernel(t, b, unit_diagonal=unit),
+                         DIRECT_TIMED_LAUNCHES)
+            plain_ms = time_ms(torch, lambda: plain(t, b, unit_diagonal=unit),
+                               DIRECT_TIMED_LAUNCHES)
+            b2 = b[:, None] if m == 1 else b
+            library_ms = time_ms(torch, lambda: torch.linalg.solve_triangular(
+                t, b2, upper=upper, unitriangular=unit),
+                DIRECT_TIMED_LAUNCHES)
+            flops = float(n) * n * m
+            nbytes = 4.0 * (n * (n + 1) / 2 + 2 * n * m)
+            bound_ms, bound_by = _bound(flops, nbytes)
+            print(f"[direct-kernel] trsm {mode} unit={unit} n={n} m={m} "
+                  f"max_abs_err={err:.3e} max_abs_x={scale:.3e} "
+                  f"bitwise_rerun=True ms={ms:.6f} plain_ms={plain_ms:.6f} "
+                  f"bound_ms={bound_ms:.6f} bound_by={bound_by} "
+                  f"library_ms={library_ms:.6f} "
+                  "(torch.linalg.solve_triangular)")
+            if mode == "lower" and m == 1:   # the record: LU's first solve
+                record["trsm"] = {"max_abs_err": err, "ms": ms,
+                                  "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                  "bound_by": bound_by,
+                                  "library_ms": library_ms}
+    return record
+
+
+def _direct_systems(torch, n: int):
+    """A plain Gaussian ``a`` (LU pivots on it), the diagonally dominant
+    ``a + nI`` (LU never pivots) and the SPD ``a aᵀ/n + 4I``, symmetrized
+    so that it is exactly symmetric (Cholesky's input check); two Gaussian
+    right-hand sides."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn(n, n, generator=g, device=dev)
+    b = torch.randn(n, generator=g, device=dev)
+    b2 = torch.randn(n, generator=g, device=dev)
+    spd = a @ a.T / n
+    spd.diagonal().add_(4.0)
+    spd = (spd + spd.T) / 2
+    dominant = a.clone()
+    dominant.diagonal().add_(float(n))
+    return {"gaussian": a, "dominant": dominant, "spd": spd}, b, b2
+
+
+def _backward_error(a, b, x) -> float:
+    """Normwise backward error ‖b − Ax‖∞ / (‖A‖∞‖x‖∞ + ‖b‖∞), in float64."""
+    a64, b64, x64 = a.double(), b.double(), x.double()
+    r = b64 - a64 @ x64
+    return float(r.abs().max() / (a64.abs().sum(1).max() * x64.abs().max()
+                                  + b64.abs().max()))
+
+
+@contextlib.contextmanager
+def _kernel_events(torch, ops, names):
+    """Record a CUDA event pair around every call of the named
+    ``kernels.ops`` wrappers (the factorizations call them through the
+    module); yields the list of pairs."""
+    events, saved = [], {name: getattr(ops, name) for name in names}
+
+    def timed(fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(ops, name, timed(fn))
+    try:
+        yield events
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def _host_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_direct_main(torch) -> dict:
+    from repro_torch.core import api
+    from repro_torch.kernels import factor_fused, ops, trsm
+    systems, b, b2 = _direct_systems(torch, N_MAIN)
+
+    def counts():
+        return {**factor_fused.LAUNCHES, **trsm.LAUNCHES}
+
+    factor_fused.reset_launches()
+    trsm.reset_launches()
+    for method, system, kernels in DIRECT_MAIN_PATH:
+        a = systems[system]
+        ref_x, ref_ms = _host_ms(torch, lambda: api.solve(
+            a, b, method=method, backend="ref"))
+        before = counts()
+        res, solve_ms = _host_ms(torch, lambda: api.solve(
+            a, b, method=method, backend="cuda", return_info=True))
+        rose = {name: counts()[name] - before[name] for name in before}
+        label = f"{method} system={system}"
+        check(res.x.shape == b.shape and bool(torch.isfinite(res.x).all()),
+              f"{label}: x is not a finite vector of shape {tuple(b.shape)}")
+        err, ref_err = (_backward_error(a, b, x) for x in (res.x, ref_x))
+        check(err <= BACKWARD_ERROR_FACTOR * ref_err,
+              f"{label}: backward error {err} > {BACKWARD_ERROR_FACTOR} x "
+              f"{ref_err} (backend='ref')")
+        for name in kernels:
+            check(rose[name] > 0, f"{label}: {name} never launched")
+        # factor once (the panel-update kernels' device time by CUDA
+        # events), then apply twice (the triangular solves' device time)
+        with _kernel_events(torch, ops, ("lu_panel_update",
+                                         "cholesky_panel_update")) as ev:
+            solve_with, factor_ms = _host_ms(torch, lambda: api.factorize(
+                a, method=method, backend="cuda"))
+        factor_kernel_ms = sum(s.elapsed_time(e) for s, e in ev)
+        with _kernel_events(torch, ops, ("trsm_lower", "trsm_upper")) as ev:
+            x1, apply_ms = _host_ms(torch, lambda: solve_with(b))
+        apply_kernel_ms = sum(s.elapsed_time(e) for s, e in ev)
+        x2, apply2_ms = _host_ms(torch, lambda: solve_with(b2))
+        check(torch.equal(x1, res.x),
+              f"{label}: factorize + apply differs from solve")
+        err2 = _backward_error(a, b2, x2)
+        check(err2 <= BACKWARD_ERROR_FACTOR * ref_err,
+              f"{label}: second apply's backward error {err2}")
+        torch.linalg.solve(a, b)                     # warm the library
+        _, lib_ms = _host_ms(torch, lambda: torch.linalg.solve(a, b))
+        print(f"[direct] {label} n={N_MAIN} float32 "
+              f"backward_error={err:.3e} ref_backward_error={ref_err:.3e} "
+              f"solve_ms={solve_ms:.3f} ref_solve_ms={ref_ms:.3f} "
+              f"factor_ms={factor_ms:.3f} "
+              f"factor_kernel_ms={factor_kernel_ms:.3f} "
+              f"panel_loop_share={1 - factor_kernel_ms / factor_ms:.4f} "
+              f"apply_ms={apply_ms:.3f} apply_kernel_ms={apply_kernel_ms:.3f} "
+              f"apply2_ms={apply2_ms:.3f} apply2_backward_error={err2:.3e} "
+              f"torch_linalg_solve_ms={lib_ms:.3f} launches={rose}")
+    launches = counts()
+    print(f"[direct] launches over the direct main path: {launches}")
+    return launches
+
+
 def phase_cli(torch) -> None:
     from repro_torch.kernels import krylov_fused
     from repro_torch.launch import solve as cli
@@ -262,6 +581,20 @@ def phase_cli(torch) -> None:
     print("[cli] returned 0")
 
 
+def phase_cli_direct(torch) -> None:
+    from repro_torch.kernels import factor_fused, trsm
+    from repro_torch.launch import solve as cli
+    before = (factor_fused.LAUNCHES["lu_panel_update"],
+              trsm.LAUNCHES["trsm"])
+    rc = cli.main(["--n", str(N_MAIN), "--method", "lu", "--backend",
+                   "cuda"])
+    check(rc == 0, f"CLI --method lu returned {rc}")
+    check(factor_fused.LAUNCHES["lu_panel_update"] > before[0]
+          and trsm.LAUNCHES["trsm"] > before[1],
+          "CLI --method lu launched no panel update or triangular solve")
+    print("[cli] --method lu returned 0")
+
+
 def main() -> int:
     import torch
     import repro_torch  # noqa: F401  (without the package: fail before output)
@@ -271,8 +604,11 @@ def main() -> int:
     phase_card(torch)
     phase_build()
     rows = phase_kernels(torch)
+    direct_rows = phase_direct_kernels(torch)
     launches = phase_main_path(torch)
+    direct_launches = phase_direct_main(torch)
     phase_cli(torch)
+    phase_cli_direct(torch)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],
          "replaces": meta["replaces"], "launches": launches[name],
@@ -281,7 +617,11 @@ def main() -> int:
          "plain_ms": rows[(name, N_MAIN)]["plain_ms"],
          "bound_ms": rows[(name, N_MAIN)]["bound_ms"], "bound_by": "bytes",
          "library_ms": None}
-        for name, meta in KERNEL_RECORD.items()]}
+        for name, meta in KERNEL_RECORD.items()] + [
+        {"name": name, "route": "cuda", "source": meta["source"],
+         "replaces": meta["replaces"], "launches": direct_launches[name],
+         **direct_rows[name]}
+        for name, meta in DIRECT_KERNEL_RECORD.items()]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,14 @@ a registry of methods.
     >>> r = solve(a, b, method="cg", return_info=True)     # full SolveResult
     >>> x = solve(a, b, method="cg", backend="cuda")       # fused kernels
     >>> x = solve(a, b, method="cg", device="cpu")         # plain CPU path
+    >>> x = solve(a, b)                                    # direct LU
+    >>> f = factorize(a, method="cholesky"); x = f(b)      # factor once
 
-Ported so far: the iterative methods on one device with a dense matrix
-(``cg``, ``pipelined_cg``, ``bicg``, ``bicgstab``, ``gmres``).  A method
-that is not registered raises the reference's "unknown method" error,
-which lists what is.
+Ported so far, on one device with a dense (n, n) matrix: the iterative
+methods (``cg``, ``pipelined_cg``, ``bicg``, ``bicgstab``, ``gmres``) and
+the direct methods (``lu``, ``cholesky``) with :func:`factorize`.  A
+method that is not registered raises the reference's "unknown method"
+error, which lists what is.
 """
 from __future__ import annotations
 
@@ -20,36 +23,49 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import blocking as _blocking
+from repro_torch.core import cholesky as _chol
 from repro_torch.core import krylov
+from repro_torch.core import lu as _lu
 from repro_torch.core import operator as _operator
 from repro_torch.core import precond as _precond
 from repro_torch.core.krylov import SolveResult
 from repro_torch.resilience import monitor as _monitor
 
 ENGINES = ("gspmd", "spmd")
+KINDS = ("iterative", "direct")
 
 
 @dataclasses.dataclass(frozen=True)
 class SolverEntry:
     name: str
     fn: Callable
-    kind: str = "iterative"       # "iterative" (the only kind ported)
+    kind: str = "iterative"       # "iterative" | "direct"
     requires: tuple = ()          # subset of {"matvec_t", "gram"}
     extra: tuple = ()             # accepted solver-specific kwargs
+    factor: Callable | None = None   # direct: a -> opaque factor state
+    apply: Callable | None = None    # direct: (state, b) -> x
 
 
 _REGISTRY: dict[str, SolverEntry] = {}
 
 
 def register_method(name: str, fn: Callable, *, kind: str = "iterative",
-                    requires: tuple = (), extra: tuple = ()) -> SolverEntry:
-    """Register a solver ``fn(op, b, x0, *, tol, maxiter, precond, **extra)
-    -> SolveResult``.  Re-registering a name overwrites it."""
-    if kind != "iterative":
-        raise ValueError(f"only iterative methods are ported; got "
-                         f"kind={kind!r}")
+                    requires: tuple = (), extra: tuple = (),
+                    factor: Callable | None = None,
+                    apply: Callable | None = None) -> SolverEntry:
+    """Register a solver.  Iterative ``fn(op, b, x0, *, tol, maxiter,
+    precond, **extra) -> SolveResult``.  Direct methods register a
+    factor/solve split: ``factor(a, *, block_size, mesh, backend) ->
+    state`` and ``apply(state, b, *, block_size, mesh, backend) -> x``
+    (``fn`` remains the one-shot composition).  Re-registering a name
+    overwrites it."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}; expected {KINDS}")
+    if kind == "direct" and (factor is None or apply is None):
+        raise ValueError(f"direct method {name!r} needs BOTH factor= and "
+                         "apply=")
     entry = SolverEntry(name, fn, kind=kind, requires=tuple(requires),
-                        extra=tuple(extra))
+                        extra=tuple(extra), factor=factor, apply=apply)
     _REGISTRY[name] = entry
     return entry
 
@@ -67,6 +83,10 @@ def available_methods(kind: str | None = None) -> tuple[str, ...]:
                         if kind is None or e.kind == kind))
 
 
+register_method("lu", _lu.solve, kind="direct",
+                factor=_lu.lu_factor, apply=_lu.lu_apply)
+register_method("cholesky", _chol.solve, kind="direct",
+                factor=_chol.cholesky_factor_state, apply=_chol.cholesky_apply)
 register_method("cg", krylov.cg)
 register_method("pipelined_cg", krylov.pipelined_cg)
 register_method("bicg", krylov.bicg, requires=("matvec_t",))
@@ -74,12 +94,15 @@ register_method("bicgstab", krylov.bicgstab)
 register_method("gmres", krylov.gmres, requires=("gram",),
                 extra=("restart",))
 
+DIRECT = available_methods("direct")
 ITERATIVE = available_methods("iterative")
 
 
-def _validate_inputs(a, b) -> None:
-    """Reject non-finite inputs, which no solver can recover from.  Reads
-    one flag per array back to the host."""
+def _validate_inputs(a, b, method: str) -> None:
+    """Reject inputs no solver can recover from, with the reference's
+    messages: non-finite entries, and for ``method="cholesky"`` a
+    non-positive diagonal or an asymmetric matrix.  Reads one flag per
+    check back to the host."""
     for name, arr in (("a", a), ("b", b)):
         if arr is None:
             continue
@@ -88,6 +111,19 @@ def _validate_inputs(a, b) -> None:
                 f"{name!r} contains non-finite entries (NaN/Inf) — no "
                 "solver can recover from a corrupted input; scrub it "
                 "(jnp.nan_to_num) or fix the producing computation")
+    if method == "cholesky" and a.ndim == 2 and a.shape[0] == a.shape[1]:
+        if bool((torch.diagonal(a) <= 0).any()):
+            raise ValueError(
+                "method='cholesky' needs an SPD matrix but the diagonal "
+                "has non-positive entries — use method='lu' (general "
+                "square systems) or fix the matrix assembly")
+        asym = float((a - a.T).abs().max())
+        scale = float(a.abs().max())
+        if asym > 1e-8 * max(scale, 1.0):
+            raise ValueError(
+                f"method='cholesky' needs a symmetric matrix but "
+                f"max|A - Aᵀ| = {asym:.3e} — symmetrize with "
+                "(a + a.T)/2 or use method='lu'")
 
 
 def _with_fail_reason(result: SolveResult) -> SolveResult:
@@ -98,6 +134,37 @@ def _with_fail_reason(result: SolveResult) -> SolveResult:
     info["fail_reason"] = None if code is None \
         else _monitor.classify(int(code))
     return result._replace(info=info)
+
+
+def _check_dense_direct(a) -> None:
+    if a.ndim != 2:
+        raise ValueError(
+            f"only dense (n, n) systems are ported for the direct methods; "
+            f"got shape {tuple(a.shape)} (batched (B, n, n) direct solves "
+            "come with the batched slice of the port)")
+
+
+def _solve_direct(entry: SolverEntry, a, b, *, block_size: int,
+                  backend: str, tol: float, return_info: bool):
+    """``apply(factor(a), b)``; with ``return_info``, the reference's direct
+    SolveResult: iterations 0, the true residual ‖b − Ax‖ (Frobenius for a
+    block of right-hand sides), converged = residual ≤ tol·‖b‖, and
+    ``fail_code`` / ``fail_iter`` 0."""
+    _check_dense_direct(a)
+    if b.ndim not in (1, 2) or b.shape[0] != a.shape[0]:
+        raise ValueError(f"b must be ({a.shape[0]},) or ({a.shape[0]}, k), "
+                         f"got shape {tuple(b.shape)}")
+    kw = dict(block_size=block_size, mesh=None, backend=backend)
+    with _device.full_fp32():
+        x = entry.apply(entry.factor(a, **kw), b, **kw)
+        if not return_info:
+            return x
+        res = torch.linalg.norm(b - a @ x)
+    bnorm = torch.linalg.norm(b)
+    atol = tol * torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
+    zero = torch.zeros((), dtype=torch.int32, device=x.device)
+    return _with_fail_reason(SolveResult(
+        x, 0, res, res <= atol, {"fail_code": zero, "fail_iter": zero}))
 
 
 def _to_device(v, dev: torch.device):
@@ -115,9 +182,11 @@ def solve(a, b, *, method: str = "lu", mesh=None, engine: str = "gspmd",
 
     ``a``, ``b`` and ``x0`` are tensors or numpy arrays; they are moved to
     ``device`` (``None`` → ``"cuda"``, which raises when no GPU is
-    present).  ``backend="cuda"`` runs the float32 hot loop through the
-    hand-written kernels; float64 runs the plain tensor path on the same
-    device.  ``precond`` is ``None``, ``"jacobi"``, ``"block_jacobi"``
+    present).  ``backend="cuda"`` runs float32 solves through the
+    hand-written kernels (the Krylov update, or the direct methods' panel
+    update and triangular solves); float64 runs the plain tensor path on
+    the same device.  Direct methods (``"lu"``, the default, and
+    ``"cholesky"``) take ``b`` of shape (n,) or (n, k) and no ``x0``.  ``precond`` is ``None``, ``"jacobi"``, ``"block_jacobi"``
     (blocks of ``block_size``), a :class:`~repro_torch.core.precond
     .Preconditioner`, or a callable ``v -> M⁻¹ v``.  ``**method_kwargs``
     forwards the options a method declares in its registry ``extra``.
@@ -126,7 +195,7 @@ def solve(a, b, *, method: str = "lu", mesh=None, engine: str = "gspmd",
     entry = get_method(method)
     a, b, x0 = (_to_device(v, dev) for v in (a, b, x0))
     if validate:
-        _validate_inputs(a, b)
+        _validate_inputs(a, b, method)
     unknown = set(method_kwargs) - set(entry.extra)
     if unknown:
         raise TypeError(f"method {method!r} does not accept "
@@ -139,10 +208,18 @@ def solve(a, b, *, method: str = "lu", mesh=None, engine: str = "gspmd",
                          "not ported yet; solve on one device with "
                          "mesh=None")
     _blocking.check_backend_name(backend)
+    if entry.kind == "direct" and x0 is not None:
+        raise ValueError(f"x0 is an iterative-method initial guess; "
+                         f"direct method {method!r} ignores it — drop x0 "
+                         "or pick an iterative method")
     if a.ndim == 2 and a.shape[0] != a.shape[1]:
         raise ValueError(
             f"matrix is non-square {tuple(a.shape)}; method {method!r} "
             "solves square systems only")
+    if entry.kind == "direct":
+        return _solve_direct(entry, a, b, block_size=block_size,
+                             backend=backend, tol=tol,
+                             return_info=return_info)
     if b.ndim != 1 or b.shape[0] != a.shape[-1]:
         raise ValueError(f"b must be a vector of length {a.shape[-1]}, got "
                          f"shape {tuple(b.shape)}")
@@ -156,3 +233,38 @@ def solve(a, b, *, method: str = "lu", mesh=None, engine: str = "gspmd",
                           precond=pc.apply if pc is not None else None,
                           **extra)
     return _with_fail_reason(result) if return_info else result.x
+
+
+def factorize(a, *, method: str = "lu", mesh=None, block_size: int = 128,
+              backend: str = "ref", engine: str = "gspmd",
+              validate: bool = True, device=None):
+    """Factor once, solve many: returns a callable ``b -> x`` for ``b`` of
+    shape (n,) or (n, k) (tensors or numpy arrays, moved to the factor's
+    device).  Any method registered with ``kind="direct"`` works.
+    ``device`` is as for :func:`solve` (``None`` → ``"cuda"``)."""
+    dev = _device.resolve(device)
+    entry = get_method(method)
+    a = _to_device(a, dev)
+    if validate:
+        _validate_inputs(a, None, method)
+    if entry.kind != "direct":
+        raise ValueError(f"factorize needs a direct method; {method!r} is "
+                         f"{entry.kind}; available: "
+                         f"{available_methods('direct')}")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; expected {ENGINES}")
+    if mesh is not None or engine == "spmd":
+        raise ValueError("distributed engines (mesh=, engine='spmd') are "
+                         "not ported yet; factor on one device with "
+                         "mesh=None")
+    _blocking.check_backend(backend, mesh)
+    _check_dense_direct(a)
+    kw = dict(block_size=block_size, mesh=None, backend=backend)
+    with _device.full_fp32():
+        state = entry.factor(a, **kw)
+
+    def apply(b):
+        with _device.full_fp32():
+            return entry.apply(state, _to_device(b, dev), **kw)
+
+    return apply

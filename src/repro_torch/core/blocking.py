@@ -62,6 +62,15 @@ def pad_system(a: torch.Tensor, block_size: int
     return a, nb, n_pad
 
 
+def working_copy(a: torch.Tensor, block_size: int
+                 ) -> tuple[torch.Tensor, int, int]:
+    """:func:`pad_system` as a fresh copy that a factorization may write in
+    place (``pad_system`` returns ``a`` itself when it needs no pad)."""
+    n0 = a.shape[-1]
+    a, nb, n = pad_system(a, block_size)
+    return (a.clone() if n == n0 else a), nb, n
+
+
 def pad_rhs(b: torch.Tensor, n_padded: int) -> torch.Tensor:
     """Zero-pad the leading axis of a right-hand side up to ``n_padded``."""
     pad = n_padded - b.shape[0]

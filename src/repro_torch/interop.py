@@ -1,9 +1,10 @@
 """Carry a solver's state across from numpy arrays.
 
-For a solver, the system and the preconditioner's state are what weights
-are to a model.  These functions take them as numpy arrays — for example
-the ``data`` of a :mod:`repro` preconditioner, converted with
-``numpy.asarray`` — so that both packages can apply the same M⁻¹.
+For a solver, the system, the preconditioner's state and a direct method's
+factors are what weights are to a model.  These functions take them as
+numpy arrays — for example the ``data`` of a :mod:`repro` preconditioner or
+the factors of :func:`repro.core.lu.lu_factor`, converted with
+``numpy.asarray`` — so that both packages apply the same operator.
 """
 from __future__ import annotations
 
@@ -46,3 +47,19 @@ def system_from_numpy(a, b, x0=None, *, device=None):
     dev = _device.resolve(device)
     return (_tensor(a, dev), _tensor(b, dev),
             None if x0 is None else _tensor(x0, dev))
+
+
+def lu_state_from_numpy(lu, perm, *, device=None):
+    """A ``method="lu"`` factor state ``(LU_packed, perm)`` from the arrays
+    of :func:`repro.core.lu.lu_factor` (``perm`` with A[perm] = L U), for
+    :func:`repro_torch.core.lu.lu_apply`."""
+    dev = _device.resolve(device)
+    return (_tensor(lu, dev),
+            _tensor(np.asarray(perm).astype(np.int64), dev))
+
+
+def cholesky_state_from_numpy(l, *, device=None):
+    """A ``method="cholesky"`` factor state ``(L,)`` from the array of
+    :func:`repro.core.cholesky.cholesky_factor`, for
+    :func:`repro_torch.core.cholesky.cholesky_apply`."""
+    return (_tensor(l, _device.resolve(device)),)

@@ -16,6 +16,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -68,3 +70,22 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def on_cuda(v: torch.Tensor) -> bool:
+    """The dispatch rule of every wrapper: True for a CUDA tensor (launch
+    the kernel or raise), False for a CPU tensor (the plain version)."""
+    if v.device.type == "cpu":
+        return False
+    if v.device.type != "cuda":
+        raise ValueError(f"no kernel for device {v.device}")
+    return True
+
+
+def raise_on(err: int, error_string, what: str) -> None:
+    """Raise when a library call returned a CUDA error; ``error_string`` is
+    the library's own ``cudaGetErrorString`` export."""
+    if err:
+        msg = error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({msg})")

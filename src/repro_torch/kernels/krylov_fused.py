@@ -74,28 +74,13 @@ def _check_vectors(names: str, *vs) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(err: int, lib, what: str) -> None:
-    if err:
-        msg = lib.krylov_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
-                           f"({msg})")
-
-
-def _on_cuda(v: torch.Tensor) -> bool:
-    if v.device.type == "cpu":
-        return False
-    if v.device.type != "cuda":
-        raise ValueError(f"no kernel for device {v.device}")
-    return True
-
-
 def fused_cg_update(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
                     ap: torch.Tensor, alpha):
     """``(x + αp, r − αAp, ⟨r', r'⟩)`` in one pass.  On CUDA, ``alpha`` is a
     0-d float32 tensor on the same device (the kernel reads it from device
     memory); ``rr`` comes back as a 0-d tensor."""
     _check_vectors("x r p ap", x, r, p, ap)
-    if not _on_cuda(x):
+    if not _build.on_cuda(x):
         return _ref.fused_cg_update(x, r, p, ap, alpha)
     if not (isinstance(alpha, torch.Tensor) and alpha.ndim == 0
             and alpha.dtype == torch.float32 and alpha.device == x.device):
@@ -112,7 +97,7 @@ def fused_cg_update(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
         x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
         alpha.data_ptr(), xo.data_ptr(), ro.data_ptr(), partials.data_ptr(),
         rr.data_ptr(), n, blocks, x.device.index, stream)
-    _raise_on(err, lib, "fused_cg_update")
+    _build.raise_on(err, lib.krylov_error_string, "fused_cg_update")
     LAUNCHES["fused_cg_update"] += 1
     return xo, ro, rr
 
@@ -121,7 +106,7 @@ def fused_pipelined_dots(r: torch.Tensor, u: torch.Tensor, w: torch.Tensor):
     """``(⟨r,u⟩, ⟨w,u⟩, ⟨r,r⟩)`` in one read of three vectors, as three 0-d
     float32 tensors."""
     _check_vectors("r u w", r, u, w)
-    if not _on_cuda(r):
+    if not _build.on_cuda(r):
         return _ref.fused_pipelined_dots(r, u, w)
     lib = _lib()
     n = r.shape[0]
@@ -132,6 +117,6 @@ def fused_pipelined_dots(r: torch.Tensor, u: torch.Tensor, w: torch.Tensor):
     err = lib.krylov_fused_pipelined_dots(
         r.data_ptr(), u.data_ptr(), w.data_ptr(), partials.data_ptr(),
         out.data_ptr(), n, blocks, r.device.index, stream)
-    _raise_on(err, lib, "fused_pipelined_dots")
+    _build.raise_on(err, lib.krylov_error_string, "fused_pipelined_dots")
     LAUNCHES["fused_pipelined_dots"] += 1
     return out[0], out[1], out[2]

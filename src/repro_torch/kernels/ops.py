@@ -1,15 +1,18 @@
 """Public dispatch for the kernels (port of :mod:`repro.kernels.ops` for the
 ported kernels).
 
-``use_kernel=False`` runs the plain version (:mod:`repro_torch.kernels.ref`)
-on any device.  Otherwise the wrapper decides by the tensors' device alone:
-a CUDA tensor launches the hand-written kernel or raises, a CPU tensor runs
-the plain version.  Callers never know which executed the math.
+The wrappers decide by the tensors' device alone: a CUDA tensor launches
+the hand-written kernel or raises, a CPU tensor runs the plain version
+(:mod:`repro_torch.kernels.ref`).  Callers never know which executed the
+math.  ``use_kernel=False`` on the Krylov updates runs the plain version on
+any device.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import factor_fused as _factor_fused
 from repro_torch.kernels import krylov_fused as _krylov_fused
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import trsm as _trsm
 
 
 def fused_cg_update(x, r, p, ap, alpha, *, use_kernel: bool = True):
@@ -22,3 +25,21 @@ def fused_pipelined_dots(r, u, w, *, use_kernel: bool = True):
     if not use_kernel:
         return _ref.fused_pipelined_dots(r, u, w)
     return _krylov_fused.fused_pipelined_dots(r, u, w)
+
+
+def lu_panel_update(a, linv, k: int, *, nb: int):
+    """In place on ``a``; see :func:`factor_fused.lu_panel_update`."""
+    return _factor_fused.lu_panel_update(a, linv, k, nb=nb)
+
+
+def cholesky_panel_update(a, linv, k: int, *, nb: int):
+    """In place on ``a``; see :func:`factor_fused.cholesky_panel_update`."""
+    return _factor_fused.cholesky_panel_update(a, linv, k, nb=nb)
+
+
+def trsm_lower(l, b, *, unit_diagonal: bool = False):
+    return _trsm.trsm_lower(l, b, unit_diagonal=unit_diagonal)
+
+
+def trsm_upper(u, b, *, unit_diagonal: bool = False):
+    return _trsm.trsm_upper(u, b, unit_diagonal=unit_diagonal)

@@ -25,3 +25,47 @@ def fused_pipelined_dots(r: torch.Tensor, u: torch.Tensor, w: torch.Tensor):
     """Pipelined-CG reduction: (⟨r,u⟩, ⟨w,u⟩, ⟨r,r⟩) in float32."""
     rf, uf, wf = r.float(), u.float(), w.float()
     return torch.dot(rf, uf), torch.dot(wf, uf), torch.dot(rf, rf)
+
+
+def lu_panel_update(a: torch.Tensor, linv: torch.Tensor, k: int, *,
+                    nb: int) -> torch.Tensor:
+    """One LU step on the (n, n) working matrix, in place: U12 = L11⁻¹·A12
+    (``linv`` = L11⁻¹) into the panel row block, then A22 −= L21·U12.  Rows
+    above k and columns left of k + nb are untouched.  Returns ``a``."""
+    u12 = linv @ a[k:k + nb, k + nb:]
+    a[k + nb:, k + nb:] -= a[k + nb:, k:k + nb] @ u12
+    a[k:k + nb, k + nb:] = u12
+    return a
+
+
+def cholesky_panel_update(a: torch.Tensor, linv: torch.Tensor, k: int, *,
+                          nb: int) -> torch.Tensor:
+    """One Cholesky step on the (n, n) working matrix, in place:
+    L21 = C·Lkk⁻ᵀ (``linv`` = Lkk⁻¹) into the panel column block, then
+    A22 −= L21·L21ᵀ over the whole trailing block (both triangles).
+    Returns ``a``."""
+    l21 = a[k + nb:, k:k + nb] @ linv.T
+    a[k + nb:, k:k + nb] = l21
+    a[k + nb:, k + nb:] -= l21 @ l21.T
+    return a
+
+
+def _solve_triangular(t, b, *, upper: bool, unit_diagonal: bool):
+    x = torch.linalg.solve_triangular(t, b[:, None] if b.ndim == 1 else b,
+                                      upper=upper,
+                                      unitriangular=unit_diagonal)
+    return x[:, 0] if b.ndim == 1 else x
+
+
+def trsm_lower(l: torch.Tensor, b: torch.Tensor, *,
+               unit_diagonal: bool = False) -> torch.Tensor:
+    """X with L X = B for the lower triangle of ``l``; ``b`` is (n,) or
+    (n, m)."""
+    return _solve_triangular(l, b, upper=False, unit_diagonal=unit_diagonal)
+
+
+def trsm_upper(u: torch.Tensor, b: torch.Tensor, *,
+               unit_diagonal: bool = False) -> torch.Tensor:
+    """X with U X = B for the upper triangle of ``u``; ``b`` is (n,) or
+    (n, m)."""
+    return _solve_triangular(u, b, upper=True, unit_diagonal=unit_diagonal)

@@ -1,13 +1,15 @@
 """CUPLSS solve CLI on PyTorch — the port of :mod:`repro.launch.solve` for the
 ported methods.
 
-    PYTHONPATH=src python -m repro_torch.launch.solve --n 16384 --method cg \\
+    PYTHONPATH=src python -m repro_torch.launch.solve --n 16384 --method lu \\
         --backend cuda
 
 Draws the same synthetic dense system as the reference CLI (numpy,
-seed 0): SPD ``a @ a.T / n + 4I`` for the CG family, diagonally dominant
-``a + nI`` otherwise.  The SPD product is formed on the device (on the host
-it would take minutes at n = 16384).  Solves it, prints the relative true
+seed 0): SPD ``a @ a.T / n + 4I`` for cholesky and the CG family,
+diagonally dominant ``a + nI`` otherwise.  The SPD product is formed on the
+device (on the host it would take minutes at n = 16384) and symmetrized,
+``(s + sᵀ)/2``, so that it is exactly symmetric, as Cholesky's input check
+requires.  Solves it, prints the relative true
 residual ‖b − Ax‖/‖b‖ (computed in float64) and the wall time, and exits
 non-zero when the residual is too large.  ``--device`` defaults to cuda.
 """
@@ -22,8 +24,9 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import api
 
-METHODS = ("cg", "pipelined_cg", "bicg", "bicgstab", "gmres")
-SPD_METHODS = ("cg", "pipelined_cg")
+METHODS = ("lu", "cholesky", "cg", "pipelined_cg", "bicg", "bicgstab",
+           "gmres")
+SPD_METHODS = ("cholesky", "cg", "pipelined_cg")
 
 
 def make_system(n: int, *, spd: bool, dtype=np.float32, seed: int = 0,
@@ -36,6 +39,7 @@ def make_system(n: int, *, spd: bool, dtype=np.float32, seed: int = 0,
     if spd:
         with _device.full_fp32():
             a = a @ a.T / n + torch.eye(n, dtype=a.dtype, device=dev) * 4.0
+            a = (a + a.T) / 2
     else:
         a += n * torch.eye(n, dtype=a.dtype, device=dev)
     b = torch.from_numpy(rng.standard_normal(n).astype(dtype)).to(dev)
@@ -53,7 +57,7 @@ def relative_residual(a: torch.Tensor, b: torch.Tensor,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1024)
-    ap.add_argument("--method", default="cg", choices=METHODS)
+    ap.add_argument("--method", default="lu", choices=METHODS)
     ap.add_argument("--backend", default="ref", choices=["ref", "cuda"])
     ap.add_argument("--precond", default=None,
                     choices=[None, "jacobi", "block_jacobi"])

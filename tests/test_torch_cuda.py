@@ -5,16 +5,20 @@ This file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Each kernel is held against its plain version on the same inputs
-(vectors rtol = atol = 1e-5, dots rtol 1e-4, as for the reference's
-Pallas kernels) and must give bitwise-identical results when rerun.
+Each kernel is held against its plain version on the same inputs, at the
+tolerances of the reference's Pallas kernel tests (fused vectors
+rtol = atol = 1e-5 and dots rtol 1e-4; triangular solves rtol = atol =
+1e-3; panel updates held tighter, on the change they make: atol 1e-5 of
+its largest entry, rtol two float32 ulps), at the tests' shapes and
+at the direct path's n = 16384, and must give bitwise-identical results
+when rerun.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import api
-from repro_torch.kernels import krylov_fused, ref
+from repro_torch.core import api, cholesky, lu
+from repro_torch.kernels import factor_fused, krylov_fused, ref, trsm
 
 SIZES = [64, 130, 4096 + 7, 1 << 20]
 
@@ -78,3 +82,116 @@ def test_solve_goes_through_the_kernels(cuda_device, method, kernel):
     assert bool(res.converged) and res.x.device.type == "cuda"
     assert res.iterations <= max(1.2 * ref_res.iterations,
                                  ref_res.iterations + 2)
+
+
+# (n, nb, k): tests/test_kernels.py's panel-update cases, then the direct
+# path's n = 16384, nb = 128 at its first, middle and next-to-last steps
+PANEL_CASES = [(128, 32, 0), (128, 32, 64), (128, 32, 96), (256, 64, 64),
+               (16384, 128, 0), (16384, 128, 8192), (16384, 128, 16128)]
+# (n, m): the reference's trsm test shapes, m = 1 and a 1-D b, n = 16384
+TRSM_CASES = [(128, 128), (256, 128), (256, 64), (100, 1), (130, 7),
+              (100, 0), (16384, 0), (16384, 128)]
+
+
+def _panel_inputs(n, nb, k, spd, dev):
+    """A Gaussian (or SPD) working matrix with a well-conditioned diagonal
+    block at (k, k) and its inverse, as the factorizations hand them over."""
+    g = torch.Generator(device=dev).manual_seed(n + nb + k)
+    a = torch.randn(n, n, generator=g, device=dev)
+    if spd:
+        a = a @ a.T / n + 4 * torch.eye(n, device=dev)
+        l11 = torch.linalg.cholesky(a[k:k + nb, k:k + nb])
+        a[k:k + nb, k:k + nb] = l11
+        linv = torch.linalg.solve_triangular(
+            l11, torch.eye(nb, device=dev), upper=False)
+    else:
+        l11 = torch.tril(torch.randn(nb, nb, generator=g, device=dev), -1) \
+            / nb + torch.eye(nb, device=dev)
+        a[k:k + nb, k:k + nb] = l11 + torch.triu(a[k:k + nb, k:k + nb])
+        linv = torch.linalg.solve_triangular(
+            l11, torch.eye(nb, device=dev), upper=False, unitriangular=True)
+    return a, linv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spd", [False, True], ids=["lu", "cholesky"])
+@pytest.mark.parametrize("n,nb,k", PANEL_CASES)
+def test_panel_update_kernels_match_plain_versions(cuda_device, n, nb, k,
+                                                   spd):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, linv = _panel_inputs(n, nb, k, spd, cuda_device)
+    name = "cholesky_panel_update" if spd else "lu_panel_update"
+    kernel, plain = getattr(factor_fused, name), getattr(ref, name)
+    before = factor_fused.LAUNCHES[name]
+    got = kernel(a.clone(), linv, k, nb=nb)
+    again = kernel(a.clone(), linv, k, nb=nb)
+    want = plain(a.clone(), linv, k, nb=nb)
+    assert torch.equal(got, again)
+    # the update can be far smaller than A's entries (SPD: ~1e-3 against a
+    # diagonal of ~4): hold the change itself, to 1e-5 of its largest
+    # entry, plus two float32 ulps of the result
+    change = float((want - a).abs().max())
+    assert (change > 0) == (k + nb < n)
+    torch.testing.assert_close(got, want, rtol=2.5e-7, atol=1e-5 * change)
+    # the last step (k + nb = n) has nothing right of the panel: no launch
+    assert factor_fused.LAUNCHES[name] == before + (2 if k + nb < n else 0)
+
+
+def _triangle(n, upper, dev):
+    g = torch.Generator(device=dev).manual_seed(n)
+    t = torch.randn(n, n, generator=g, device=dev) * (0.5 / n ** 0.5) \
+        + 2 * torch.eye(n, device=dev)
+    return (torch.triu(t) if upper else torch.tril(t)), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lower", "upper", "transposed"])
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("n,m", TRSM_CASES)
+def test_trsm_kernel_matches_plain_version(cuda_device, n, m, unit, mode):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t, g = _triangle(n, mode == "upper", cuda_device)
+    if mode == "transposed":      # Lᵀ as Cholesky's second solve reads it
+        t = t.T
+    b = torch.randn(*((n, m) if m else (n,)), generator=g,
+                    device=cuda_device)
+    solve = trsm.trsm_lower if mode == "lower" else trsm.trsm_upper
+    plain = ref.trsm_lower if mode == "lower" else ref.trsm_upper
+    before = trsm.LAUNCHES["trsm"]
+    got = solve(t, b, unit_diagonal=unit)
+    assert torch.equal(got, solve(t, b, unit_diagonal=unit))
+    assert got.shape == b.shape
+    torch.testing.assert_close(got, plain(t, b, unit_diagonal=unit),
+                               rtol=1e-3, atol=1e-3)
+    assert trsm.LAUNCHES["trsm"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,kernel", [
+    ("lu", "lu_panel_update"), ("cholesky", "cholesky_panel_update")])
+def test_direct_solve_goes_through_the_kernels(cuda_device, method, kernel):
+    rng = np.random.default_rng(0)
+    n = 1000
+    a = rng.standard_normal((n, n))
+    a = a @ a.T / n + 4 * np.eye(n) if method == "cholesky" \
+        else a + n * np.eye(n)
+    a, b = a.astype(np.float32), rng.standard_normal((n, 2)).astype(
+        np.float32)
+    before = (factor_fused.LAUNCHES[kernel], trsm.LAUNCHES["trsm"])
+    res = api.solve(a, b, method=method, backend="cuda", return_info=True)
+    assert factor_fused.LAUNCHES[kernel] > before[0]
+    assert trsm.LAUNCHES["trsm"] == before[1] + 2
+    assert res.x.device.type == "cuda"
+    assert float(res.residual) <= 1e-5 * float(np.linalg.norm(b))
+    x64 = np.linalg.solve(a.astype(np.float64), b.astype(np.float64))
+    np.testing.assert_allclose(res.x.cpu().numpy(), x64, rtol=0,
+                               atol=1e-4 * np.abs(x64).max())
+
+
+@pytest.mark.cuda
+def test_unfused_kernel_route_raises_until_the_gemm_kernel_is_ported(
+        cuda_device):
+    a = torch.eye(256, device=cuda_device) * 2
+    for factor in (lu.lu_factor, cholesky.cholesky_factor):
+        with pytest.raises(NotImplementedError, match="kernel 7"):
+            factor(a, backend="cuda", fuse_panel=False)

@@ -80,12 +80,14 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(no_gpu):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             api.solve(a, b, **kw)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.factorize(a)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         interop.system_from_numpy(a, b)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--n", "16", "--method", "cg"])
 
 
-@pytest.mark.parametrize("method", ["cg", "gmres"])
+@pytest.mark.parametrize("method", ["cg", "gmres", "lu", "cholesky"])
 def test_cli_runs_on_the_cpu(method, capsys):
     assert cli.main(["--n", "96", "--method", method, "--backend", "cuda",
                      "--device", "cpu"]) == 0

@@ -35,6 +35,33 @@ Phases, each printing its own lines; any failure exits non-zero:
    10× that of ``backend="ref"`` on the card; factor and apply times, the
    kernels' share of the factorization, and ``torch.linalg.solve``'s time;
    then ``factorize`` once and apply twice;
+3c. sparse kernel, at the sparse main path's 3-D Poisson system on a 128³
+   grid (n = 2,097,152, nb = 32, nnzb = 423,936): the BSR SpMV against its
+   plain version with random, nonsymmetric brick values on the Poisson
+   structure, float32 and float64, k ∈ {1, 4} columns, for A and for its
+   transposed BSR (held against A's plain ``matvec_t``), at rtol 1e-5
+   (float32) / 1e-12 (float64) and atol the same times max|y|,
+   bitwise-repeatable; each timed beside its plain version, its byte bound
+   and ``torch.sparse_bsr_tensor(...) @ x`` (cuSPARSE) on the same bricks;
+   then the Poisson matrix itself (k = 1, float32, the main path's call),
+   beside cuSPARSE CSR on its true nonzeros;
+4c. sparse main path: ``api.solve(bsr, b, backend="cuda")`` on the Poisson
+   system with a Gaussian b, in float32 for cg, pipelined_cg, bicg,
+   bicgstab and gmres, cg with jacobi and with block_jacobi, cg in float64
+   (the SpMV kernel in float64), and cg with ssor at 32³ (a
+   host-sequential sweep): converged, true relative residual ≤ 1e-4
+   (float64), iterations within max(1.2×, +2) of ``backend="ref"`` on the
+   card, the SpMV and Krylov launch counters risen; time per iteration
+   beside the SpMV's time.  ``backend="ref"`` runs at most 3000 matvecs
+   (``maxiter`` 3000, GMRES 93 cycles of 32); a method it does not
+   converge at 128³ runs at 64³, and the line says so;
+4d. BiCGSTAB witness: float32 BiCGSTAB on the 128³ system with each
+   pairing of SpMV (plain, the kernel, a float64 product rounded to
+   float32) and vector update (plain, the fused kernel), to show which one
+   moves the iteration count; float64 BiCGSTAB on ``backend="cuda"`` (the
+   SpMV kernel in float64) against ``backend="ref"``: both converged and
+   within max(1.2×, +2) of each other; cuda against ref at 64³ for four
+   more right-hand sides;
 5. CLI: ``repro_torch.launch.solve.main`` at n = 16384 with cg and with lu
    on the kernels.
 
@@ -106,6 +133,29 @@ MAIN_PATH = (
 )
 
 
+SPARSE_GRID = 128                    # 3-D Poisson on a 128³ grid
+SPARSE_NB = 32                       # BSR.from_dense's default brick size
+SPMV_TIMED_LAUNCHES = 50
+FP64_FLOPS_PER_S = 34e12             # H100 SXM float64, outside tensor cores
+SPARSE_MAXITER = 3000                # matvecs of the backend="ref" run
+GMRES_RESTART = 32
+WITNESS_SEEDS = (1, 2, 3, 4)          # right-hand sides of the 64³ witness
+SPMV_RECORD = {"source": "src/repro_torch/kernels/csrc/spmv.cu",
+               "replaces": "src/repro/kernels/spmv.py:102"}
+# (method, precond, grid, dtype, Krylov kernel whose counter must rise)
+SPARSE_MAIN_PATH = (
+    ("cg", None, SPARSE_GRID, "float32", "fused_cg_update"),
+    ("pipelined_cg", None, SPARSE_GRID, "float32", "fused_pipelined_dots"),
+    ("bicg", None, SPARSE_GRID, "float32", "fused_cg_update"),
+    ("bicgstab", None, SPARSE_GRID, "float32", "fused_cg_update"),
+    ("gmres", None, SPARSE_GRID, "float32", None),
+    ("cg", "jacobi", SPARSE_GRID, "float32", "fused_cg_update"),
+    ("cg", "block_jacobi", SPARSE_GRID, "float32", "fused_cg_update"),
+    ("cg", None, SPARSE_GRID, "float64", None),
+    ("cg", "ssor", 32, "float32", "fused_cg_update"),
+)
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -150,7 +200,7 @@ def phase_card(torch) -> str:
 
 def phase_build() -> None:
     from repro_torch.kernels import _build
-    names = ("krylov_fused", "factor_fused", "trsm")
+    names = ("krylov_fused", "factor_fused", "trsm", "spmv")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         paths = list(pool.map(_build.build, names))
@@ -569,6 +619,275 @@ def phase_direct_main(torch) -> dict:
     return launches
 
 
+def _spmv_cost(bsr, k: int) -> tuple[float, float]:
+    """Flops and bytes of one y = A x: the bricks, the structure and x read
+    once, y written once."""
+    nnzb, nb = bsr.data.shape[0], bsr.nb
+    item = bsr.data.element_size()
+    nbytes = item * (nnzb * nb * nb + (bsr.n_pad_cols + bsr.n_pad) * k) \
+        + 4 * (nnzb + bsr.nbr + 1)
+    return 2.0 * nnzb * nb * nb * k, float(nbytes)
+
+
+def _spmv_bound(bsr, k: int) -> tuple[float, str]:
+    flops, nbytes = _spmv_cost(bsr, k)
+    peak = FP64_FLOPS_PER_S if bsr.data.element_size() == 8 \
+        else FP32_FLOPS_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _library_spmv(torch, bsr):
+    """``torch.sparse_bsr_tensor(...) @ x`` (cuSPARSE) on the same bricks, as
+    a callable of x: the library's time beside the kernel's."""
+    mat = torch.sparse_bsr_tensor(bsr.indptr_dev, bsr.indices_dev, bsr.data,
+                                  size=(bsr.n_pad, bsr.n_pad_cols))
+    return lambda x: mat @ x
+
+
+def _true_csr(torch, bsr):
+    """cuSPARSE CSR of the BSR's true nonzeros (not its stored zeros)."""
+    e, i, j = bsr.data.nonzero(as_tuple=True)
+    rows = torch.from_numpy(bsr.row_ids).to(bsr.device).long()[e] * bsr.nb \
+        + i
+    cols = bsr.indices_dev.long()[e] * bsr.nb + j
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), bsr.data[e, i, j],
+                                  size=(bsr.n_pad, bsr.n_pad_cols))
+    return coo.coalesce().to_sparse_csr()
+
+
+def phase_sparse_kernels(torch) -> dict:
+    import numpy as np
+    from repro_torch.kernels import spmv
+    from repro_torch.sparse import BSR, problems
+    dev = torch.device("cuda")
+    grid, nb = SPARSE_GRID, SPARSE_NB
+    poisson = problems.poisson_3d_bsr(grid, nb, np.float32, device=dev)
+    n = poisson.shape[0]
+    fill = float((poisson.data != 0).sum()) / poisson.data.numel()
+    print(f"[sparse-kernel] poisson_3d grid={grid}³ n={n} nb={nb} "
+          f"nnzb={poisson.data.shape[0]} stored={poisson.nnz} "
+          f"brick_fill={fill:.6f} float32_brick_bytes="
+          f"{poisson.data.numel() * 4}")
+    g = torch.Generator(device=dev).manual_seed(14)
+    record = {}
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        data = torch.randn(poisson.data.shape, generator=g, device=dev,
+                           dtype=dtype)
+        a = BSR(data, poisson.indices, poisson.indptr, poisson.shape, nb,
+                device=dev)
+        at = a.transpose()
+        lib_a, lib_at = _library_spmv(torch, a), _library_spmv(torch, at)
+        for k in (1, 4):
+            x = torch.randn(*((n,) if k == 1 else (n, k)), generator=g,
+                            device=dev, dtype=dtype)
+            for label, mat, plain, lib in (("A", a, a.matvec, lib_a),
+                                           ("A^T", at, a.matvec_t, lib_at)):
+                got = spmv.bsr_matvec(mat, x)
+                again = spmv.bsr_matvec(mat, x)
+                want = plain(x)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again),
+                      f"bsr_matvec {label} {dtype} k={k}: reruns differ")
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                check(bool(torch.isfinite(got).all()) and torch.allclose(
+                    got, want, rtol=rtol, atol=rtol * scale),
+                    f"bsr_matvec {label} {dtype} k={k}: kernel and plain "
+                    f"version differ (max abs err {err}, max |y| {scale})")
+                ms = time_ms(torch, lambda: spmv.bsr_matvec(mat, x),
+                             SPMV_TIMED_LAUNCHES)
+                plain_ms = time_ms(torch, lambda: plain(x),
+                                   SPMV_TIMED_LAUNCHES)
+                library_ms = time_ms(torch, lambda: lib(x),
+                                     SPMV_TIMED_LAUNCHES)
+                bound_ms, bound_by = _spmv_bound(mat, k)
+                print(f"[sparse-kernel] bsr_matvec {label} "
+                      f"{str(dtype).removeprefix('torch.')} k={k} "
+                      f"max_abs_err={err:.3e} max_abs_y={scale:.3e} "
+                      f"bitwise_rerun=True ms={ms:.6f} "
+                      f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} "
+                      f"bound_by={bound_by} library_ms={library_ms:.6f} "
+                      "(torch.sparse_bsr_tensor @ x) "
+                      f"achieved_GBps={_spmv_cost(mat, k)[1] / ms / 1e6:.1f}")
+                if dtype == torch.float32 and k == 1 and label == "A":
+                    record["max_abs_err"] = err
+        del a, at, data, lib_a, lib_at
+        torch.cuda.empty_cache()
+    # the main path's call: the Poisson matrix itself, float32, one vector
+    b = torch.randn(n, generator=g, device=dev)
+    lib = _library_spmv(torch, poisson)
+    csr = _true_csr(torch, poisson)
+    check(torch.allclose(lib(b), poisson.matvec(b), rtol=1e-5, atol=1e-6)
+          and torch.allclose(csr @ b, poisson.matvec(b), rtol=1e-5,
+                             atol=1e-6),
+          "the library products disagree with the plain product")
+    ms = time_ms(torch, lambda: spmv.bsr_matvec(poisson, b),
+                 SPMV_TIMED_LAUNCHES)
+    plain_ms = time_ms(torch, lambda: poisson.matvec(b), SPMV_TIMED_LAUNCHES)
+    library_ms = time_ms(torch, lambda: lib(b), SPMV_TIMED_LAUNCHES)
+    csr_ms = time_ms(torch, lambda: csr @ b, SPMV_TIMED_LAUNCHES)
+    bound_ms, bound_by = _spmv_bound(poisson, 1)
+    # values, x and y in float32; column and row indices in int64, as
+    # this CSR holds them
+    csr_bytes = 4.0 * (csr._nnz() + 2 * n) + 8.0 * (csr._nnz() + n + 1)
+    print(f"[sparse-kernel] bsr_matvec poisson float32 k=1 ms={ms:.6f} "
+          f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} "
+          f"bound_by={bound_by} library_ms={library_ms:.6f} "
+          "(torch.sparse_bsr_tensor @ x) "
+          f"csr_true_nnz={csr._nnz()} csr_true_nnz_ms={csr_ms:.6f} "
+          f"csr_true_nnz_bound_ms={csr_bytes / HBM_BYTES_PER_S * 1e3:.6f}")
+    record.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": library_ms})
+    return record
+
+
+def _relative_residual64(torch, a64, b, x) -> float:
+    """‖b − Ax‖ / ‖b‖ in float64 (``a64`` a float64 copy of the BSR)."""
+    b64 = b.double()
+    return float(torch.linalg.norm(b64 - a64.matvec(x.double()))
+                 / torch.linalg.norm(b64))
+
+
+def _poisson_system(torch, grid: int, dtype: str, seed: int):
+    """The Poisson BSR on a grid³ grid on the card, its float64 copy (the
+    residual check) and a Gaussian b from ``seed``, the same for both
+    dtypes."""
+    import numpy as np
+    from repro_torch.sparse import BSR, problems
+    dev = torch.device("cuda")
+    a = problems.poisson_3d_bsr(grid, SPARSE_NB, np.dtype(dtype), device=dev)
+    a64 = a if dtype == "float64" else BSR(
+        a.data.double(), a.indices, a.indptr, a.shape, a.nb, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = torch.randn(a.shape[0], generator=g, device=dev,
+                    dtype=torch.float64).to(a.dtype)
+    return a, a64, b
+
+
+def phase_sparse_main(torch, spmv_ms: float) -> dict:
+    from repro_torch.core import api
+    from repro_torch.kernels import krylov_fused, spmv
+    systems = {}
+
+    def system(grid, dtype):
+        if (grid, dtype) not in systems:
+            systems[(grid, dtype)] = _poisson_system(torch, grid, dtype, grid)
+        return systems[(grid, dtype)]
+
+    def counts():
+        return {**spmv.LAUNCHES, **krylov_fused.LAUNCHES}
+
+    spmv.reset_launches()
+    krylov_fused.reset_launches()
+    for method, precond, grid, dtype, kernel in SPARSE_MAIN_PATH:
+        maxiter = SPARSE_MAXITER // GMRES_RESTART if method == "gmres" \
+            else SPARSE_MAXITER
+        kw = dict(method=method, precond=precond, maxiter=maxiter,
+                  return_info=True)
+        a, a64, b = system(grid, dtype)
+        ref_res, ref_ms = _host_ms(torch, lambda: api.solve(
+            a, b, backend="ref", **kw))
+        if not bool(ref_res.converged) and grid == SPARSE_GRID:
+            print(f"[sparse] {method} precond={precond} {dtype}: "
+                  f"backend='ref' did not converge at {grid}³ within "
+                  f"maxiter={maxiter} ({ref_res.iterations} iterations, "
+                  f"{ref_res.info['fail_reason']}); running at "
+                  f"{grid // 2}³")
+            grid //= 2
+            a, a64, b = system(grid, dtype)
+            ref_res, ref_ms = _host_ms(torch, lambda: api.solve(
+                a, b, backend="ref", **kw))
+        before = counts()
+        res, solve_ms = _host_ms(torch, lambda: api.solve(
+            a, b, backend="cuda", **kw))
+        rose = {name: counts()[name] - before[name] for name in before}
+        rel = _relative_residual64(torch, a64, b, res.x)
+        it, ref_it = res.iterations, ref_res.iterations
+        label = f"{method}" + (f"+{precond}" if precond else "") \
+            + f" grid={grid}³ {dtype}"
+        unit = "cycle" if method == "gmres" else "iter"
+        print(f"[sparse] {label} n={a.shape[0]} iterations={it} "
+              f"ref_iterations={ref_it} "
+              f"ref_converged={bool(ref_res.converged)} "
+              f"converged={bool(res.converged)} "
+              f"fail_reason={res.info['fail_reason']} rel_residual={rel:.3e} "
+              f"solve_ms={solve_ms:.3f} ref_solve_ms={ref_ms:.3f} "
+              f"ms_per_{unit}={solve_ms / max(it, 1):.6f} "
+              f"ref_ms_per_{unit}={ref_ms / max(ref_it, 1):.6f} "
+              f"spmv_ms={spmv_ms:.6f} launches={rose}")
+        check(bool(res.converged), f"{label}: not converged ({res.info})")
+        check(rel <= RESIDUAL_LIMIT, f"{label}: residual {rel} > "
+                                     f"{RESIDUAL_LIMIT}")
+        check(it <= max(1.2 * ref_it, ref_it + 2),
+              f"{label}: {it} iterations vs {ref_it} on backend='ref'")
+        check(rose["bsr_matvec"] > 0, f"{label}: bsr_matvec never launched")
+        if kernel is not None:
+            check(rose[kernel] > 0, f"{label}: {kernel} never launched")
+    launches = counts()
+    print(f"[sparse] launches over the sparse main path: {launches}")
+    systems.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bicgstab_witness(torch) -> None:
+    """Which kernel moves float32 BiCGSTAB's iteration count on the Poisson
+    system: the solver run with each pairing of SpMV (plain, kernel 8, or a
+    float64 product rounded to float32) and vector update (plain or kernel
+    1); then kernel 8 in float64 against the plain float64 path, which must
+    agree within max(1.2×, +2) both ways; then cuda against ref at 64³ for
+    several right-hand sides.  Launches here are comparisons and count
+    nowhere."""
+    from repro_torch import device as _device
+    from repro_torch.core import api, krylov
+    from repro_torch.core.operator import DenseOperator
+    from repro_torch.kernels import ops
+    a, a64, b = _poisson_system(torch, SPARSE_GRID, "float32", SPARSE_GRID)
+    spmvs = {"plain": a.matvec,
+             "kernel8": lambda v: ops.bsr_matvec(a, v),
+             "float64_rounded": lambda v: a64.matvec(v.double()).float()}
+    for spmv_name, mv in spmvs.items():
+        for update, backend in (("plain", "ref"), ("kernel1", "cuda")):
+            op = DenseOperator(matvec=mv, backend=backend)
+            with _device.full_fp32():
+                res = krylov.bicgstab(op, b, maxiter=SPARSE_MAXITER)
+            rel = _relative_residual64(torch, a64, b, res.x)
+            print(f"[witness] bicgstab grid={SPARSE_GRID}³ float32 "
+                  f"spmv={spmv_name} update={update} "
+                  f"iterations={res.iterations} "
+                  f"converged={bool(res.converged)} rel_residual={rel:.3e}")
+    del a, spmvs
+    b64 = b.double()
+    its = {}
+    for backend in ("ref", "cuda"):
+        res = api.solve(a64, b64, method="bicgstab", backend=backend,
+                        maxiter=SPARSE_MAXITER, return_info=True)
+        rel = _relative_residual64(torch, a64, b64, res.x)
+        its[backend] = res.iterations
+        print(f"[witness] bicgstab grid={SPARSE_GRID}³ float64 "
+              f"backend={backend} iterations={res.iterations} "
+              f"converged={bool(res.converged)} rel_residual={rel:.3e}")
+        check(bool(res.converged) and rel <= RESIDUAL_LIMIT,
+              f"float64 bicgstab backend={backend}: converged="
+              f"{bool(res.converged)} residual {rel}")
+    lo, hi = sorted(its.values())
+    check(hi <= max(1.2 * lo, lo + 2), f"float64 bicgstab: kernel 8 took "
+                                       f"{its['cuda']} iterations, the plain "
+                                       f"path {its['ref']}")
+    del a64, b64
+    for seed in WITNESS_SEEDS:
+        a, a64, b = _poisson_system(torch, SPARSE_GRID // 2, "float32", seed)
+        its = {backend: api.solve(a, b, method="bicgstab", backend=backend,
+                                  maxiter=SPARSE_MAXITER,
+                                  return_info=True).iterations
+               for backend in ("ref", "cuda")}
+        print(f"[witness] bicgstab grid={SPARSE_GRID // 2}³ float32 "
+              f"seed={seed} iterations={its['cuda']} "
+              f"ref_iterations={its['ref']}")
+    torch.cuda.empty_cache()
+
+
 def phase_cli(torch) -> None:
     from repro_torch.kernels import krylov_fused
     from repro_torch.launch import solve as cli
@@ -605,8 +924,11 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(torch)
     direct_rows = phase_direct_kernels(torch)
+    sparse_row = phase_sparse_kernels(torch)
     launches = phase_main_path(torch)
     direct_launches = phase_direct_main(torch)
+    sparse_launches = phase_sparse_main(torch, sparse_row["ms"])
+    phase_bicgstab_witness(torch)
     phase_cli(torch)
     phase_cli_direct(torch)
     record = {"kernels": [
@@ -621,7 +943,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": meta["source"],
          "replaces": meta["replaces"], "launches": direct_launches[name],
          **direct_rows[name]}
-        for name, meta in DIRECT_KERNEL_RECORD.items()]}
+        for name, meta in DIRECT_KERNEL_RECORD.items()] + [
+        {"name": "bsr_matvec", "route": "cuda", **SPMV_RECORD,
+         "launches": sparse_launches["bsr_matvec"], **sparse_row}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

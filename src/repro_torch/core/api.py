@@ -8,11 +8,13 @@ a registry of methods.
     >>> x = solve(a, b)                                    # direct LU
     >>> f = factorize(a, method="cholesky"); x = f(b)      # factor once
 
-Ported so far, on one device with a dense (n, n) matrix: the iterative
-methods (``cg``, ``pipelined_cg``, ``bicg``, ``bicgstab``, ``gmres``) and
-the direct methods (``lu``, ``cholesky``) with :func:`factorize`.  A
-method that is not registered raises the reference's "unknown method"
-error, which lists what is.
+Ported so far, on one device: the iterative methods (``cg``,
+``pipelined_cg``, ``bicg``, ``bicgstab``, ``gmres``) on a dense (n, n)
+tensor or a sparse :class:`~repro_torch.sparse.formats.BSR` /
+:class:`~repro_torch.sparse.formats.ELL` matrix, and the direct methods
+(``lu``, ``cholesky``) with :func:`factorize` on a dense one.  A method
+that is not registered raises the reference's "unknown method" error,
+which lists what is.
 """
 from __future__ import annotations
 
@@ -98,12 +100,13 @@ DIRECT = available_methods("direct")
 ITERATIVE = available_methods("iterative")
 
 
-def _validate_inputs(a, b, method: str) -> None:
+def _validate_inputs(a, b, method: str, sparse: bool = False) -> None:
     """Reject inputs no solver can recover from, with the reference's
-    messages: non-finite entries, and for ``method="cholesky"`` a
-    non-positive diagonal or an asymmetric matrix.  Reads one flag per
-    check back to the host."""
-    for name, arr in (("a", a), ("b", b)):
+    messages: non-finite entries (of the stored values of a sparse ``a``),
+    and for ``method="cholesky"`` on a dense ``a`` a non-positive diagonal
+    or an asymmetric matrix.  Reads one flag per check back to the
+    host."""
+    for name, arr in (("a", a.data if sparse else a), ("b", b)):
         if arr is None:
             continue
         if not bool(torch.isfinite(arr).all()):
@@ -111,7 +114,8 @@ def _validate_inputs(a, b, method: str) -> None:
                 f"{name!r} contains non-finite entries (NaN/Inf) — no "
                 "solver can recover from a corrupted input; scrub it "
                 "(jnp.nan_to_num) or fix the producing computation")
-    if method == "cholesky" and a.ndim == 2 and a.shape[0] == a.shape[1]:
+    if method == "cholesky" and not sparse and a.ndim == 2 \
+            and a.shape[0] == a.shape[1]:
         if bool((torch.diagonal(a) <= 0).any()):
             raise ValueError(
                 "method='cholesky' needs an SPD matrix but the diagonal "
@@ -168,7 +172,13 @@ def _solve_direct(entry: SolverEntry, a, b, *, block_size: int,
 
 
 def _to_device(v, dev: torch.device):
-    return None if v is None else torch.as_tensor(v, device=dev).contiguous()
+    """A tensor or numpy array as a contiguous tensor on ``dev``; a sparse
+    matrix moves with its structure (``SparseMatrix.to``)."""
+    if v is None:
+        return None
+    if getattr(v, "is_sparse", False):
+        return v.to(dev)
+    return torch.as_tensor(v, device=dev).contiguous()
 
 
 def solve(a, b, *, method: str = "lu", mesh=None, engine: str = "gspmd",
@@ -180,22 +190,27 @@ def solve(a, b, *, method: str = "lu", mesh=None, engine: str = "gspmd",
     """Solve A x = b.  Returns x, or the full :class:`SolveResult`
     (iterations / residual / converged / info) when ``return_info=True``.
 
-    ``a``, ``b`` and ``x0`` are tensors or numpy arrays; they are moved to
-    ``device`` (``None`` → ``"cuda"``, which raises when no GPU is
-    present).  ``backend="cuda"`` runs float32 solves through the
-    hand-written kernels (the Krylov update, or the direct methods' panel
-    update and triangular solves); float64 runs the plain tensor path on
-    the same device.  Direct methods (``"lu"``, the default, and
-    ``"cholesky"``) take ``b`` of shape (n,) or (n, k) and no ``x0``.  ``precond`` is ``None``, ``"jacobi"``, ``"block_jacobi"``
-    (blocks of ``block_size``), a :class:`~repro_torch.core.precond
+    ``a``, ``b`` and ``x0`` are tensors or numpy arrays, and ``a`` may be
+    a sparse :class:`~repro_torch.sparse.formats.BSR` / ``ELL`` matrix
+    (iterative methods only); they are moved to ``device`` (``None`` →
+    ``"cuda"``, which raises when no GPU is present).  ``backend="cuda"``
+    runs float32 solves through the hand-written kernels (the Krylov
+    update, or the direct methods' panel update and triangular solves);
+    float64 runs the plain tensor path on the same device, except that
+    every matvec on a BSR, float32 or float64, runs the SpMV kernel.
+    Direct methods (``"lu"``, the default, and ``"cholesky"``) take ``b``
+    of shape (n,) or (n, k) and no ``x0``.  ``precond`` is ``None``,
+    ``"jacobi"``, ``"block_jacobi"`` (blocks of ``block_size``; a BSR's
+    own bricks), ``"ssor"`` (BSR only), a :class:`~repro_torch.core.precond
     .Preconditioner`, or a callable ``v -> M⁻¹ v``.  ``**method_kwargs``
     forwards the options a method declares in its registry ``extra``.
     """
     dev = _device.resolve(device)
     entry = get_method(method)
+    sparse = getattr(a, "is_sparse", False)
     a, b, x0 = (_to_device(v, dev) for v in (a, b, x0))
     if validate:
-        _validate_inputs(a, b, method)
+        _validate_inputs(a, b, method, sparse)
     unknown = set(method_kwargs) - set(entry.extra)
     if unknown:
         raise TypeError(f"method {method!r} does not accept "
@@ -217,6 +232,10 @@ def solve(a, b, *, method: str = "lu", mesh=None, engine: str = "gspmd",
             f"matrix is non-square {tuple(a.shape)}; method {method!r} "
             "solves square systems only")
     if entry.kind == "direct":
+        if sparse:
+            raise ValueError(f"direct method {method!r} is dense-only; "
+                             "sparse systems use the iterative methods "
+                             "(or densify explicitly with a.to_dense())")
         return _solve_direct(entry, a, b, block_size=block_size,
                              backend=backend, tol=tol,
                              return_info=return_info)
@@ -242,6 +261,9 @@ def factorize(a, *, method: str = "lu", mesh=None, block_size: int = 128,
     shape (n,) or (n, k) (tensors or numpy arrays, moved to the factor's
     device).  Any method registered with ``kind="direct"`` works.
     ``device`` is as for :func:`solve` (``None`` → ``"cuda"``)."""
+    if getattr(a, "is_sparse", False):
+        raise ValueError("factorize is dense-only; sparse systems use the "
+                         "iterative methods (or densify with a.to_dense())")
     dev = _device.resolve(device)
     entry = get_method(method)
     a = _to_device(a, dev)

@@ -11,8 +11,10 @@ against the primitive set
 
 :class:`DenseOperator` with ``backend="cuda"`` sends ``update`` and
 ``pipelined_dots`` of float32 vectors through the hand-written kernels of
-:mod:`repro_torch.kernels.krylov_fused`.  The matvecs are plain products,
-as in the reference, where they were left to XLA.
+:mod:`repro_torch.kernels.krylov_fused`.  Its matvecs are plain products,
+as in the reference, where they were left to XLA.  The sparse engine
+(:mod:`repro_torch.sparse.operator`) subclasses it and sends its matvecs
+through the BSR SpMV kernel.
 """
 from __future__ import annotations
 
@@ -124,10 +126,19 @@ def as_operator(op, *, matvec_t: Callable | None = None) -> LinearOperator:
     raise TypeError(f"expected LinearOperator or callable, got {type(op)}")
 
 
-def make_operator(a: torch.Tensor, *, mesh=None,
-                  backend: str = "ref") -> LinearOperator:
-    """The engine for ``a``.  Only the single-device dense engine is ported;
-    distributed (``mesh=``), batched (B, n, n) and sparse engines raise."""
+def make_operator(a, *, mesh=None, backend: str = "ref") -> LinearOperator:
+    """The engine for ``a``: a sparse matrix → :class:`~repro_torch.sparse
+    .operator.SparseOperator`, a dense (n, n) tensor →
+    :class:`DenseOperator`.  Distributed (``mesh=``) and batched (B, n, n)
+    engines are not ported yet and raise."""
+    if getattr(a, "is_sparse", False):
+        if mesh is not None:
+            raise ValueError("distributed sparse solves are block-row SPMD "
+                             "— use engine='spmd' (sparse.operator"
+                             ".spmd_solve), not a gspmd operator; the port "
+                             "has no engine='spmd' yet")
+        from repro_torch.sparse.operator import SparseOperator
+        return SparseOperator(a, backend=backend)
     if mesh is not None:
         raise ValueError("distributed engines (mesh=) are not ported yet; "
                          "drop mesh= for the single-device engine")

@@ -1,5 +1,6 @@
 """Preconditioners for the Krylov solvers (port of :mod:`repro.core.precond`,
-dense, single device): Jacobi and block-Jacobi.
+dense, single device): Jacobi and block-Jacobi.  ``make`` sends a sparse
+matrix to the matrix-free extractions of :mod:`repro_torch.sparse.precond`.
 
 Block-Jacobi LU-factors the diagonal blocks up front, batched over the
 blocks with ``torch.linalg.lu_factor``, and applies M⁻¹ with one batched
@@ -73,7 +74,12 @@ def from_data(kind: str, data: tuple) -> Preconditioner:
 def make(spec, a: torch.Tensor, block_size: int = 128
          ) -> Preconditioner | None:
     """A Preconditioner from a user spec (None / name / Preconditioner /
-    callable)."""
+    callable).  Sparse matrices delegate to the matrix-free extractions of
+    :mod:`repro_torch.sparse.precond` (same kinds + ``"ssor"``, no
+    densify)."""
+    if getattr(a, "is_sparse", False):
+        from repro_torch.sparse import precond as sparse_precond
+        return sparse_precond.make(spec, a, block_size)
     if spec is None:
         return None
     if isinstance(spec, Preconditioner):

@@ -2,9 +2,10 @@
 
 For a solver, the system, the preconditioner's state and a direct method's
 factors are what weights are to a model.  These functions take them as
-numpy arrays — for example the ``data`` of a :mod:`repro` preconditioner or
-the factors of :func:`repro.core.lu.lu_factor`, converted with
-``numpy.asarray`` — so that both packages apply the same operator.
+numpy arrays — for example the ``data`` of a :mod:`repro` preconditioner,
+the factors of :func:`repro.core.lu.lu_factor` or the arrays of a
+:mod:`repro.sparse` ``BSR`` / ``ELL``, converted with ``numpy.asarray`` —
+so that both packages apply the same operator.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import precond as _precond
+from repro_torch.sparse import formats as _formats
 
 
 def _tensor(v, dev):
@@ -63,3 +65,24 @@ def cholesky_state_from_numpy(l, *, device=None):
     :func:`repro.core.cholesky.cholesky_factor`, for
     :func:`repro_torch.core.cholesky.cholesky_apply`."""
     return (_tensor(l, _device.resolve(device)),)
+
+
+def bsr_from_numpy(data, indices, indptr, shape, nb, *, device=None
+                   ) -> _formats.BSR:
+    """The port's :class:`~repro_torch.sparse.formats.BSR` from a BSR's
+    arrays: bricks ``data`` (nnzb, nb, nb), block columns ``indices``,
+    block-row offsets ``indptr``, the logical ``shape`` and brick size
+    ``nb`` (a :mod:`repro.sparse` BSR's ``data``, ``indices``, ``indptr``,
+    ``shape`` and ``nb``)."""
+    dev = _device.resolve(device)
+    return _formats.BSR(_tensor(data, dev), np.asarray(indices),
+                        np.asarray(indptr), shape, nb, device=dev)
+
+
+def ell_from_numpy(data, cols, valid, shape, *, device=None) -> _formats.ELL:
+    """The port's :class:`~repro_torch.sparse.formats.ELL` from an ELL's
+    arrays: values ``data`` (n, width), column table ``cols`` and slot mask
+    ``valid`` of the same shape, and the logical ``shape``."""
+    dev = _device.resolve(device)
+    return _formats.ELL(_tensor(data, dev), np.asarray(cols),
+                        np.asarray(valid), shape, device=dev)

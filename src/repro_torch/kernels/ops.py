@@ -12,6 +12,7 @@ from __future__ import annotations
 from repro_torch.kernels import factor_fused as _factor_fused
 from repro_torch.kernels import krylov_fused as _krylov_fused
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import spmv as _spmv
 from repro_torch.kernels import trsm as _trsm
 
 
@@ -43,3 +44,8 @@ def trsm_lower(l, b, *, unit_diagonal: bool = False):
 
 def trsm_upper(u, b, *, unit_diagonal: bool = False):
     return _trsm.trsm_upper(u, b, unit_diagonal=unit_diagonal)
+
+
+def bsr_matvec(bsr, x):
+    """y = A x for a BSR ``bsr``; see :func:`spmv.bsr_matvec`."""
+    return _spmv.bsr_matvec(bsr, x)

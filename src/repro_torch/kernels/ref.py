@@ -69,3 +69,11 @@ def trsm_upper(u: torch.Tensor, b: torch.Tensor, *,
     """X with U X = B for the upper triangle of ``u``; ``b`` is (n,) or
     (n, m)."""
     return _solve_triangular(u, b, upper=True, unit_diagonal=unit_diagonal)
+
+
+def bsr_matvec(bsr, x: torch.Tensor) -> torch.Tensor:
+    """y = A x for a BSR matrix and x of shape (n,) or (n, k), float32 or
+    float64: the matrix's own plain product (gather of x blocks, batched
+    brick products, slot-ordered row sums), as the reference's
+    ``bsr_matvec_ref`` is ``BSR.matvec``."""
+    return bsr.matvec(x)

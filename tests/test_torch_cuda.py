@@ -9,16 +9,19 @@ Each kernel is held against its plain version on the same inputs, at the
 tolerances of the reference's Pallas kernel tests (fused vectors
 rtol = atol = 1e-5 and dots rtol 1e-4; triangular solves rtol = atol =
 1e-3; panel updates held tighter, on the change they make: atol 1e-5 of
-its largest entry, rtol two float32 ulps), at the tests' shapes and
-at the direct path's n = 16384, and must give bitwise-identical results
-when rerun.
+its largest entry, rtol two float32 ulps; the BSR SpMV rtol 1e-5 in
+float32 and 1e-12 in float64, atol the same times max|y|), at the tests'
+shapes and at the main paths' sizes, and must give bitwise-identical
+results when rerun.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import api, cholesky, lu
-from repro_torch.kernels import factor_fused, krylov_fused, ref, trsm
+from repro_torch.kernels import factor_fused, krylov_fused, ref, spmv, trsm
+from repro_torch.sparse import BSR, problems
+from repro_torch.sparse.operator import SparseOperator
 
 SIZES = [64, 130, 4096 + 7, 1 << 20]
 
@@ -195,3 +198,109 @@ def test_unfused_kernel_route_raises_until_the_gemm_kernel_is_ported(
     for factor in (lu.lu_factor, cholesky.cholesky_factor):
         with pytest.raises(NotImplementedError, match="kernel 7"):
             factor(a, backend="cuda", fuse_panel=False)
+
+
+def _random_bsr(m, n, nb, dtype, dev, seed=0):
+    """A random sparse (m, n) BSR with empty and uneven block rows."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((m, n))
+    a[rng.random((m, n)) > 0.3] = 0
+    a[: m // 4] = 0                                  # empty block rows
+    a[:, n // 3: n // 2] = 0                         # empty block columns
+    return BSR.from_dense(a.astype(dtype), block_size=nb, device=dev)
+
+
+def _spmv_close(got, want, dtype):
+    rtol = 1e-5 if dtype == np.float32 else 1e-12
+    torch.testing.assert_close(got, want, rtol=rtol,
+                               atol=rtol * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("nb", [8, 20, 32])
+@pytest.mark.parametrize("shape", ["padded", "tall", "wide"])
+def test_spmv_kernel_matches_plain_version(cuda_device, shape, nb, k, dtype):
+    """Kernel 8 against the plain product for A and its transposed BSR
+    (against A's plain ``matvec_t``), a padded n and rectangular A."""
+    m, n = {"padded": (7 * nb + 3, 7 * nb + 3), "tall": (9 * nb, 5 * nb + 1),
+            "wide": (5 * nb + 1, 9 * nb)}[shape]
+    a = _random_bsr(m, n, nb, dtype, cuda_device, seed=nb + k)
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    tdtype = a.dtype
+    x = torch.randn(*((n,) if k == 1 else (n, k)), generator=g,
+                    device=cuda_device, dtype=tdtype)
+    u = torch.randn(*((m,) if k == 1 else (m, k)), generator=g,
+                    device=cuda_device, dtype=tdtype)
+    at = a.transpose()
+    before = spmv.LAUNCHES["bsr_matvec"]
+    got = spmv.bsr_matvec(a, x)
+    assert torch.equal(got, spmv.bsr_matvec(a, x))        # bitwise reruns
+    got_t = spmv.bsr_matvec(at, u)
+    assert torch.equal(got_t, spmv.bsr_matvec(at, u))
+    assert spmv.LAUNCHES["bsr_matvec"] == before + 4
+    assert got.shape == (m,) + x.shape[1:] and got.dtype == tdtype
+    _spmv_close(got, ref.bsr_matvec(a, x), dtype)
+    _spmv_close(got_t, a.matvec_t(u), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["float32", "float64"])
+def test_spmv_kernel_on_the_poisson_system(cuda_device, dtype):
+    """The main path's brick size (nb = 32, k = 1) on a 3-D Poisson system
+    of 32³ unknowns, random values on its structure."""
+    a = problems.poisson_3d_bsr(32, 32, dtype, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    a = BSR(torch.randn(a.data.shape, generator=g, device=cuda_device,
+                        dtype=a.dtype), a.indices, a.indptr, a.shape, a.nb,
+            device=cuda_device)
+    x = torch.randn(a.shape[1], generator=g, device=cuda_device,
+                    dtype=a.dtype)
+    got = spmv.bsr_matvec(a, x)
+    assert torch.equal(got, spmv.bsr_matvec(a, x))
+    _spmv_close(got, ref.bsr_matvec(a, x), dtype)
+
+
+@pytest.mark.cuda
+def test_spmv_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    a = _random_bsr(64, 64, 8, np.float32, cuda_device)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        spmv.bsr_matvec(a, torch.ones(64, device=cuda_device,
+                                      dtype=torch.float64))
+    with pytest.raises(ValueError, match=r"x must be \(64,\)"):
+        spmv.bsr_matvec(a, torch.ones(63, device=cuda_device))
+    with pytest.raises(ValueError, match="the matrix on"):
+        spmv.bsr_matvec(a, torch.ones(64))
+    # the sparse engine hands every dtype to the kernel: no plain fallback
+    half = BSR(a.data.half(), a.indices, a.indptr, a.shape, a.nb,
+               device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        SparseOperator(half, backend="cuda").matvec(
+            torch.ones(64, device=cuda_device, dtype=torch.float16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cg", "pipelined_cg", "bicg", "bicgstab",
+                                    "gmres"])
+def test_sparse_solve_goes_through_the_spmv_kernel(cuda_device, method):
+    a = problems.poisson_3d_bsr(16, 8, device=cuda_device)
+    # a Gaussian b, as the smoke's sparse path: with the smooth forcing,
+    # float32 rounding of x alone keeps GMRES's true residual above 1e-6
+    b = np.random.default_rng(0).standard_normal(a.shape[0]).astype(
+        np.float32)
+    ref_res = api.solve(a, b, method=method, return_info=True)
+    before = spmv.LAUNCHES["bsr_matvec"]
+    res = api.solve(a, b, method=method, backend="cuda", return_info=True)
+    assert spmv.LAUNCHES["bsr_matvec"] > before
+    assert bool(res.converged) and res.x.device.type == "cuda"
+    assert res.iterations <= max(1.2 * ref_res.iterations,
+                                 ref_res.iterations + 2)
+    x64 = res.x.double()
+    a64 = BSR(a.data.double(), a.indices, a.indptr, a.shape, a.nb,
+              device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device).double()
+    assert float(torch.linalg.norm(bt - a64.matvec(x64))
+                 / torch.linalg.norm(bt)) <= 1e-4

@@ -19,6 +19,7 @@ import torch
 from repro_torch import interop
 from repro_torch.core import api
 from repro_torch.launch import solve as cli
+from repro_torch.sparse import BSR, ELL, problems
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -56,6 +57,11 @@ def test_port_runs_without_jax():
         "r = api.solve(a, b, method='bicgstab', backend='cuda', "
         "device='cpu', return_info=True)\n"
         "assert bool(r.converged), r\n"
+        "from repro_torch.sparse import problems\n"
+        "bsr = problems.poisson_3d_bsr(4, 4, device='cpu')\n"
+        "r = api.solve(bsr, np.ones(64, np.float32), method='bicg', "
+        "backend='cuda', device='cpu', return_info=True)\n"
+        "assert bool(r.converged), r\n"
         "assert not _build._LIBS, 'a CPU solve loaded a kernel library'\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
         "if sys.modules[m] is not None]\n"
@@ -83,6 +89,21 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(no_gpu):
         api.factorize(a)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         interop.system_from_numpy(a, b)
+    # the sparse entry points: constructors, converters, builders, solves
+    bsr = BSR.from_dense(a, block_size=4, device="cpu")
+    ell = ELL.from_dense(a, device="cpu")
+    for make in (lambda: BSR.from_dense(a, block_size=4),
+                 lambda: BSR(bsr.data, bsr.indices, bsr.indptr, bsr.shape,
+                             bsr.nb),
+                 lambda: ELL.from_dense(a),
+                 lambda: interop.bsr_from_numpy(bsr.data.numpy(), bsr.indices,
+                                                bsr.indptr, bsr.shape, bsr.nb),
+                 lambda: interop.ell_from_numpy(ell.data.numpy(), ell.cols,
+                                                ell.valid, ell.shape),
+                 lambda: problems.poisson_3d_bsr(4, 4),
+                 lambda: api.solve(bsr, b, method="cg", backend="cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--n", "16", "--method", "cg"])
 

@@ -62,8 +62,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    SpMV kernel in float64) against ``backend="ref"``: both converged and
    within max(1.2×, +2) of each other; cuda against ref at 64³ for four
    more right-hand sides;
+3d. least-squares kernels, at the least-squares path's m = 32768,
+   n = 8192 float32, nb = 128: the QR trailing update at k ∈ {0, n/2,
+   n − 2nb} on real Householder panels of the path's Gaussian A/√m
+   (held on the change it makes: atol 1e-4 · its largest entry, rtol
+   1e-5), and the tiled GEMM at the three products of the unfused QR at
+   k = 0 (Vᵀ·A, Tᵀ·W, V·Y) and at the unfused LU's trailing update at
+   n = 16384, k = 0 (rtol 1e-4, atol 1e-4 · max|C|); each
+   bitwise-repeatable, timed beside its plain version, its bound and the
+   library call: ``torch.matmul`` (cuBLAS) for the GEMM, and for the QR
+   update three cuBLAS calls (mm, mm, addmm);
+4e. least-squares main path at m = 32768, n = 8192 float32 (A Gaussian /
+   √m, b = A x* + 1e-3 · a Gaussian): ``api.solve(..., method="qr",
+   backend="cuda")`` with the QR update and triangular-solve counters
+   risen and a normal-equations residual ‖Aᵀ(b − Ax)‖ / ‖Aᵀb‖ (float64) at
+   most 10× that of ``backend="ref"`` on the card; factor and apply times,
+   the panel loop's share of the factorization, factorize once + apply
+   twice; ``qr_factor(..., fuse_panel=False)`` with the GEMM counter risen
+   and the same gate; lsqr and cgls converged with iterations within
+   max(1.2×, +2) of ``backend="ref"``; ``torch.linalg.lstsq`` (driver
+   gels) as the yardstick; then the unfused LU (on ``a + nI``) and
+   Cholesky at n = 16384, ``fuse_panel=False``: the GEMM and
+   triangular-solve counters risen, the backward error at most 10× that
+   of ``backend="ref"`` from phase 4b;
 5. CLI: ``repro_torch.launch.solve.main`` at n = 16384 with cg and with lu
-   on the kernels.
+   on the kernels, and at ``--m 32768 --n 8192`` with qr.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -72,6 +95,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -156,6 +180,17 @@ SPARSE_MAIN_PATH = (
 )
 
 
+LS_M, LS_N = 32768, 8192           # the least-squares path's system
+NB_LS = 128
+LS_NOISE = 1e-3                      # b = A x* + LS_NOISE · Gaussian
+LS_KERNEL_RECORD = {
+    "matmul": {"source": "src/repro_torch/kernels/csrc/gemm.cu",
+               "replaces": "src/repro/kernels/gemm.py:55"},
+    "qr_panel_update": {"source": "src/repro_torch/kernels/csrc/qr_fused.cu",
+                        "replaces": "src/repro/kernels/qr_fused.py:83"},
+}
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -200,7 +235,8 @@ def phase_card(torch) -> str:
 
 def phase_build() -> None:
     from repro_torch.kernels import _build
-    names = ("krylov_fused", "factor_fused", "trsm", "spmv")
+    names = ("krylov_fused", "factor_fused", "trsm", "spmv", "gemm",
+             "qr_fused")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         paths = list(pool.map(_build.build, names))
@@ -570,6 +606,7 @@ def phase_direct_main(torch) -> dict:
 
     factor_fused.reset_launches()
     trsm.reset_launches()
+    ref_errors = {}
     for method, system, kernels in DIRECT_MAIN_PATH:
         a = systems[system]
         ref_x, ref_ms = _host_ms(torch, lambda: api.solve(
@@ -582,6 +619,7 @@ def phase_direct_main(torch) -> dict:
         check(res.x.shape == b.shape and bool(torch.isfinite(res.x).all()),
               f"{label}: x is not a finite vector of shape {tuple(b.shape)}")
         err, ref_err = (_backward_error(a, b, x) for x in (res.x, ref_x))
+        ref_errors[(method, system)] = ref_err
         check(err <= BACKWARD_ERROR_FACTOR * ref_err,
               f"{label}: backward error {err} > {BACKWARD_ERROR_FACTOR} x "
               f"{ref_err} (backend='ref')")
@@ -616,7 +654,7 @@ def phase_direct_main(torch) -> dict:
               f"torch_linalg_solve_ms={lib_ms:.3f} launches={rose}")
     launches = counts()
     print(f"[direct] launches over the direct main path: {launches}")
-    return launches
+    return launches, ref_errors
 
 
 def _spmv_cost(bsr, k: int) -> tuple[float, float]:
@@ -888,6 +926,272 @@ def phase_bicgstab_witness(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def _ls_matrix(torch, m: int, n: int, seed: int):
+    """The least-squares path's Gaussian A/√m (singular values in about
+    [0.5, 1.5] at m = 4n) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(m, n, generator=g, device="cuda") / m ** 0.5, g
+
+
+def _qr_update_inputs(torch, base, k: int, nb: int):
+    """``base`` with its panel at column k factored by the port's panel
+    QR, and that panel's active (m − k, nb) V and its T, as the
+    factorization hands them to the kernel."""
+    from repro_torch.core import qr
+    a = base.clone()
+    pan = a[k:, k:k + nb]
+    taus = qr._panel_qr(pan)
+    v = qr._panel_v(pan)
+    t = qr._form_t(v, taus)
+    return a, v, t
+
+
+def _qr_update_cost(m: int, n: int, nb: int, k: int) -> tuple[float, float]:
+    """Flops and bytes of one QR trailing update over the window of
+    R = m − k rows and N = n − k − nb columns: W = VᵀA, Y = TᵀW, A −= VY;
+    the window read and written once, V and T read once."""
+    r, c = m - k, n - k - nb
+    return (4.0 * r * nb * c + 2.0 * nb * nb * c,
+            4.0 * (2 * r * c + r * nb + nb * nb))
+
+
+def phase_ls_kernels(torch) -> dict:
+    from repro_torch.kernels import gemm, qr_fused, ref
+    m, n, nb = LS_M, LS_N, NB_LS
+    record = {}
+    base, g = _ls_matrix(torch, m, n, 9)
+    for k in (0, n // 2, n - 2 * nb):
+        a, v, t = _qr_update_inputs(torch, base, k, nb)
+        got = qr_fused.qr_panel_update(a.clone(), v, t, k, nb=nb)
+        again = qr_fused.qr_panel_update(a.clone(), v, t, k, nb=nb)
+        want = ref.qr_panel_update(a.clone(), v, t, k, nb=nb)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"qr_panel_update k={k}: reruns "
+                                       "differ")
+        check(torch.equal(got[:, :k + nb], a[:, :k + nb]),
+              f"qr_panel_update k={k}: wrote left of the window")
+        err = float((got - want).abs().max())
+        change = float((want - a).abs().max())
+        atol = 1e-4 * change
+        check(change > 0 and torch.allclose(got, want, rtol=1e-5, atol=atol),
+              f"qr_panel_update k={k}: kernel and plain version differ (max "
+              f"abs err {err}, atol {atol})")
+        del got, again, want
+        w = a                          # timed calls update w in place
+        win = w[k:, k + nb:]
+        ms = time_ms(torch, lambda: qr_fused.qr_panel_update(w, v, t, k,
+                                                             nb=nb),
+                     DIRECT_TIMED_LAUNCHES)
+        plain_ms = time_ms(torch, lambda: ref.qr_panel_update(w, v, t, k,
+                                                              nb=nb),
+                           DIRECT_TIMED_LAUNCHES)
+        library_ms = time_ms(torch, lambda: torch.addmm(
+            win, v, torch.mm(t.T, torch.mm(v.T, win)), alpha=-1.0),
+            DIRECT_TIMED_LAUNCHES)
+        flops, nbytes = _qr_update_cost(m, n, nb, k)
+        bound_ms, bound_by = _bound(flops, nbytes)
+        print(f"[ls-kernel] qr_panel_update m={m} n={n} nb={nb} k={k} "
+              f"max_abs_err={err:.3e} max_abs_change={change:.3e} "
+              f"bitwise_rerun=True ms={ms:.6f} plain_ms={plain_ms:.6f} "
+              f"bound_ms={bound_ms:.6f} bound_by={bound_by} "
+              f"flops={flops:.6e} bytes={nbytes:.6e} "
+              f"achieved_tflops={flops / ms / 1e9:.3f} "
+              f"library_ms={library_ms:.6f} (three cuBLAS calls: mm, mm, "
+              "addmm)")
+        if k == 0:                     # the record: the largest step
+            record["qr_panel_update"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+        del a, w, win
+    # the GEMM at the unfused QR's three products at k = 0 (V is the
+    # window's V, the first panel of the matrix) and at the unfused LU's
+    # trailing update at n = 16384, k = 0 (views of one matrix)
+    a, v, t = _qr_update_inputs(torch, base, 0, nb)
+    del base
+    wq = torch.randn(nb, n - nb, generator=g, device="cuda")
+    lu_a = torch.randn(N_MAIN, N_MAIN, generator=g, device="cuda")
+    cases = (("qr V^T A", v.T, a[:, nb:]), ("qr T^T W", t.T, wq),
+             ("qr V Y", v, wq),
+             ("lu L21 U12", lu_a[nb:, :nb], lu_a[:nb, nb:]))
+    for label, x, y in cases:
+        got = gemm.matmul(x, y)
+        again = gemm.matmul(x, y)
+        want = ref.matmul(x, y)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"matmul {label}: reruns differ")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, rtol=1e-4, atol=1e-4 * scale),
+            f"matmul {label}: kernel and plain version differ (max abs err "
+            f"{err}, max |C| {scale})")
+        del got, again, want
+        ms = time_ms(torch, lambda: gemm.matmul(x, y), DIRECT_TIMED_LAUNCHES)
+        plain_ms = time_ms(torch, lambda: ref.matmul(x, y),
+                           DIRECT_TIMED_LAUNCHES)
+        library_ms = time_ms(torch, lambda: torch.matmul(x, y),
+                             DIRECT_TIMED_LAUNCHES)
+        (mm, kk), nn = x.shape, y.shape[1]
+        flops = 2.0 * mm * nn * kk
+        bound_ms, bound_by = _bound(flops, 4.0 * (mm * kk + kk * nn
+                                                  + mm * nn))
+        print(f"[ls-kernel] matmul {label} M={mm} N={nn} K={kk} "
+              f"max_abs_err={err:.3e} max_abs_c={scale:.3e} "
+              f"bitwise_rerun=True ms={ms:.6f} plain_ms={plain_ms:.6f} "
+              f"bound_ms={bound_ms:.6f} bound_by={bound_by} "
+              f"achieved_tflops={flops / ms / 1e9:.3f} "
+              f"library_ms={library_ms:.6f} (torch.matmul, cuBLAS; the "
+              "plain version is the same call)")
+        if label == "qr V^T A":        # the record: the few-tile product
+            record["matmul"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+    del a, v, t, wq, lu_a, cases
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_ls_main(torch, direct_ref_errors: dict) -> dict:
+    """The least-squares path, then the unfused LU / Cholesky route; the
+    QR update, GEMM and triangular-solve counters are set to 0 before and
+    read after."""
+    from repro_torch.core import api, cholesky, lu, qr
+    from repro_torch.kernels import gemm, ops, qr_fused, trsm
+    from repro_torch.launch.solve import normal_residual
+    m, n = LS_M, LS_N
+    a, g = _ls_matrix(torch, m, n, 16)
+    x_star = torch.randn(n, generator=g, device="cuda")
+    b = a @ x_star + LS_NOISE * torch.randn(m, generator=g, device="cuda")
+    b2 = torch.randn(m, generator=g, device="cuda")
+
+    def counts():
+        return {**qr_fused.LAUNCHES, **gemm.LAUNCHES, **trsm.LAUNCHES}
+
+    def gate(label, x, ref_res, bb=b):
+        check(x.shape == (n,) and bool(torch.isfinite(x).all()),
+              f"{label}: x is not a finite vector of shape ({n},)")
+        res = normal_residual(a, bb, x)
+        check(res <= BACKWARD_ERROR_FACTOR * ref_res,
+              f"{label}: normal-equations residual {res} > "
+              f"{BACKWARD_ERROR_FACTOR} x {ref_res} (backend='ref')")
+        return res
+
+    for mod in (qr_fused, gemm, trsm):
+        mod.reset_launches()
+    label = f"qr m={m} n={n} float32"
+    ref_solve, ref_factor_ms = _host_ms(torch, lambda: api.factorize(
+        a, method="qr", backend="ref"))
+    ref_x, ref_apply_ms = _host_ms(torch, lambda: ref_solve(b))
+    ref_ms = ref_factor_ms + ref_apply_ms
+    ref_res = normal_residual(a, b, ref_x)
+    ref_res2 = normal_residual(a, b2, ref_solve(b2))
+    del ref_solve
+    before = counts()
+    res, solve_ms = _host_ms(torch, lambda: api.solve(
+        a, b, method="qr", backend="cuda", return_info=True))
+    rose = {k: counts()[k] - before[k] for k in before}
+    nres = gate(label, res.x, ref_res)
+    for name in ("qr_panel_update", "trsm"):
+        check(rose[name] > 0, f"{label}: {name} never launched")
+    with _kernel_events(torch, ops, ("qr_panel_update",)) as ev:
+        solve_with, factor_ms = _host_ms(torch, lambda: api.factorize(
+            a, method="qr", backend="cuda"))
+    factor_kernel_ms = sum(s.elapsed_time(e) for s, e in ev)
+    with _kernel_events(torch, ops, ("trsm_upper",)) as ev:
+        x1, apply_ms = _host_ms(torch, lambda: solve_with(b))
+    apply_kernel_ms = sum(s.elapsed_time(e) for s, e in ev)
+    x2, apply2_ms = _host_ms(torch, lambda: solve_with(b2))
+    check(torch.equal(x1, res.x), f"{label}: factorize + apply differs "
+                                  "from solve")
+    gate(f"{label} second apply", x2, ref_res2, b2)
+    torch.linalg.lstsq(a, b[:, None], driver="gels")      # warm the library
+    lib, lib_ms = _host_ms(torch, lambda: torch.linalg.lstsq(
+        a, b[:, None], driver="gels"))
+    lib_res = normal_residual(a, b, lib.solution[:, 0])
+    err_x = float(torch.linalg.norm(res.x - x_star)
+                  / torch.linalg.norm(x_star))
+    print(f"[ls] {label} normal_residual={nres:.3e} "
+          f"ref_normal_residual={ref_res:.3e} rel_err_vs_x_star={err_x:.3e} "
+          f"solve_ms={solve_ms:.3f} ref_solve_ms={ref_ms:.3f} "
+          f"ref_factor_ms={ref_factor_ms:.3f} "
+          f"factor_ms={factor_ms:.3f} factor_kernel_ms={factor_kernel_ms:.3f} "
+          f"panel_loop_share={1 - factor_kernel_ms / factor_ms:.4f} "
+          f"apply_ms={apply_ms:.3f} apply_kernel_ms={apply_kernel_ms:.3f} "
+          f"apply2_ms={apply2_ms:.3f} "
+          f"torch_linalg_lstsq_gels_ms={lib_ms:.3f} "
+          f"lstsq_normal_residual={lib_res:.3e} launches={rose}")
+    del solve_with, lib, x1, x2
+    # the unfused route: the three GEMM products a step
+    before = counts()
+    st, unfused_ms = _host_ms(torch, lambda: qr.qr_factor(
+        a, backend="cuda", fuse_panel=False))
+    rose = {k: counts()[k] - before[k] for k in before}
+    x = qr.qr_apply(dataclasses.replace(st, m0=m, n0=n), b, backend="cuda")
+    nres = gate(f"{label} fuse_panel=False", x, ref_res)
+    check(rose["matmul"] > 0 and rose["qr_panel_update"] == 0,
+          f"{label} fuse_panel=False: launches {rose}")
+    print(f"[ls] {label} fuse_panel=False normal_residual={nres:.3e} "
+          f"factor_ms={unfused_ms:.3f} launches={rose}")
+    del st, x
+    # the iterative least-squares methods
+    for method in ("lsqr", "cgls"):
+        runs = {}
+        for backend in ("ref", "cuda"):
+            r, ms = _host_ms(torch, lambda: api.solve(
+                a, b, method=method, backend=backend, return_info=True))
+            runs[backend] = (r, ms)
+        (r, ms), (rr, rms) = runs["cuda"], runs["ref"]
+        it, ref_it = r.iterations, rr.iterations
+        nres = normal_residual(a, b, r.x)
+        print(f"[ls] {method} m={m} n={n} float32 iterations={it} "
+              f"ref_iterations={ref_it} converged={bool(r.converged)} "
+              f"fail_reason={r.info['fail_reason']} "
+              f"normal_residual={nres:.3e} solve_ms={ms:.3f} "
+              f"ref_solve_ms={rms:.3f} "
+              f"ms_per_iter={ms / max(it, 1):.6f}")
+        check(bool(r.converged) and bool(rr.converged),
+              f"{method}: not converged ({r.info}, ref {rr.info})")
+        check(it <= max(1.2 * ref_it, ref_it + 2),
+              f"{method}: {it} iterations vs {ref_it} on backend='ref'")
+    del a, b, b2
+    torch.cuda.empty_cache()
+    # the unfused LU / Cholesky route at the direct path's n = 16384
+    systems, bd, _ = _direct_systems(torch, N_MAIN)
+    for method, system in (("lu", "dominant"), ("cholesky", "spd")):
+        ad = systems[system]
+        before = counts()
+        if method == "lu":
+            (fac, perm), ms = _host_ms(torch, lambda: lu.lu_factor(
+                ad, backend="cuda", fuse_panel=False))
+            x = lu.lu_solve(fac, perm, bd, backend="cuda")
+        else:
+            fac, ms = _host_ms(torch, lambda: cholesky.cholesky_factor(
+                ad, backend="cuda", fuse_panel=False))
+            x = cholesky.cholesky_solve(fac, bd, backend="cuda")
+        rose = {k: counts()[k] - before[k] for k in before}
+        ref_err = direct_ref_errors[(method, system)]
+        err = _backward_error(ad, bd, x)
+        lbl = f"{method} system={system} n={N_MAIN} fuse_panel=False"
+        print(f"[ls] {lbl} backward_error={err:.3e} "
+              f"ref_backward_error={ref_err:.3e} factor_ms={ms:.3f} "
+              f"launches={rose}")
+        check(bool(torch.isfinite(x).all())
+              and err <= BACKWARD_ERROR_FACTOR * ref_err,
+              f"{lbl}: backward error {err} > {BACKWARD_ERROR_FACTOR} x "
+              f"{ref_err} (backend='ref')")
+        check(rose["matmul"] > 0 and rose["trsm"] > 0,
+              f"{lbl}: launches {rose}")
+        del fac, x
+    del systems
+    torch.cuda.empty_cache()
+    launches = counts()
+    print(f"[ls] launches over the least-squares path and the unfused "
+          f"route: {launches}")
+    return launches
+
+
 def phase_cli(torch) -> None:
     from repro_torch.kernels import krylov_fused
     from repro_torch.launch import solve as cli
@@ -914,6 +1218,18 @@ def phase_cli_direct(torch) -> None:
     print("[cli] --method lu returned 0")
 
 
+def phase_cli_ls(torch) -> None:
+    from repro_torch.kernels import qr_fused
+    from repro_torch.launch import solve as cli
+    before = qr_fused.LAUNCHES["qr_panel_update"]
+    rc = cli.main(["--m", str(LS_M), "--n", str(LS_N), "--method", "qr",
+                   "--backend", "cuda"])
+    check(rc == 0, f"CLI --m {LS_M} --method qr returned {rc}")
+    check(qr_fused.LAUNCHES["qr_panel_update"] > before,
+          "CLI --method qr launched no QR update")
+    print(f"[cli] --m {LS_M} --n {LS_N} --method qr returned 0")
+
+
 def main() -> int:
     import torch
     import repro_torch  # noqa: F401  (without the package: fail before output)
@@ -925,12 +1241,15 @@ def main() -> int:
     rows = phase_kernels(torch)
     direct_rows = phase_direct_kernels(torch)
     sparse_row = phase_sparse_kernels(torch)
+    ls_rows = phase_ls_kernels(torch)
     launches = phase_main_path(torch)
-    direct_launches = phase_direct_main(torch)
+    direct_launches, direct_ref_errors = phase_direct_main(torch)
     sparse_launches = phase_sparse_main(torch, sparse_row["ms"])
     phase_bicgstab_witness(torch)
+    ls_launches = phase_ls_main(torch, direct_ref_errors)
     phase_cli(torch)
     phase_cli_direct(torch)
+    phase_cli_ls(torch)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],
          "replaces": meta["replaces"], "launches": launches[name],
@@ -945,7 +1264,11 @@ def main() -> int:
          **direct_rows[name]}
         for name, meta in DIRECT_KERNEL_RECORD.items()] + [
         {"name": "bsr_matvec", "route": "cuda", **SPMV_RECORD,
-         "launches": sparse_launches["bsr_matvec"], **sparse_row}]}
+         "launches": sparse_launches["bsr_matvec"], **sparse_row}] + [
+        {"name": name, "route": "cuda", "source": meta["source"],
+         "replaces": meta["replaces"], "launches": ls_launches[name],
+         **ls_rows[name]}
+        for name, meta in LS_KERNEL_RECORD.items()]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

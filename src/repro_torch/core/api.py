@@ -11,10 +11,12 @@ a registry of methods.
 Ported so far, on one device: the iterative methods (``cg``,
 ``pipelined_cg``, ``bicg``, ``bicgstab``, ``gmres``) on a dense (n, n)
 tensor or a sparse :class:`~repro_torch.sparse.formats.BSR` /
-:class:`~repro_torch.sparse.formats.ELL` matrix, and the direct methods
-(``lu``, ``cholesky``) with :func:`factorize` on a dense one.  A method
-that is not registered raises the reference's "unknown method" error,
-which lists what is.
+:class:`~repro_torch.sparse.formats.ELL` matrix, the direct methods
+(``lu``, ``cholesky``, ``qr``) with :func:`factorize` on a dense one, and
+least squares on a rectangular (m, n) system, m ≥ n: ``qr`` (direct) and
+``lsqr`` / ``cgls`` (iterative, dense or BSR).  A method that is not
+registered raises the reference's "unknown method" error, which lists what
+is.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from repro_torch.core import krylov
 from repro_torch.core import lu as _lu
 from repro_torch.core import operator as _operator
 from repro_torch.core import precond as _precond
+from repro_torch.core import qr as _qr
 from repro_torch.core.krylov import SolveResult
 from repro_torch.resilience import monitor as _monitor
 
@@ -46,6 +49,7 @@ class SolverEntry:
     extra: tuple = ()             # accepted solver-specific kwargs
     factor: Callable | None = None   # direct: a -> opaque factor state
     apply: Callable | None = None    # direct: (state, b) -> x
+    rectangular: bool = False     # accepts a non-square (m, n) system
 
 
 _REGISTRY: dict[str, SolverEntry] = {}
@@ -54,20 +58,23 @@ _REGISTRY: dict[str, SolverEntry] = {}
 def register_method(name: str, fn: Callable, *, kind: str = "iterative",
                     requires: tuple = (), extra: tuple = (),
                     factor: Callable | None = None,
-                    apply: Callable | None = None) -> SolverEntry:
+                    apply: Callable | None = None,
+                    rectangular: bool = False) -> SolverEntry:
     """Register a solver.  Iterative ``fn(op, b, x0, *, tol, maxiter,
     precond, **extra) -> SolveResult``.  Direct methods register a
     factor/solve split: ``factor(a, *, block_size, mesh, backend) ->
     state`` and ``apply(state, b, *, block_size, mesh, backend) -> x``
-    (``fn`` remains the one-shot composition).  Re-registering a name
-    overwrites it."""
+    (``fn`` remains the one-shot composition).  ``rectangular=True`` opts
+    a method in to non-square (least-squares) systems.  Re-registering a
+    name overwrites it."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected {KINDS}")
     if kind == "direct" and (factor is None or apply is None):
         raise ValueError(f"direct method {name!r} needs BOTH factor= and "
                          "apply=")
     entry = SolverEntry(name, fn, kind=kind, requires=tuple(requires),
-                        extra=tuple(extra), factor=factor, apply=apply)
+                        extra=tuple(extra), factor=factor, apply=apply,
+                        rectangular=rectangular)
     _REGISTRY[name] = entry
     return entry
 
@@ -89,12 +96,18 @@ register_method("lu", _lu.solve, kind="direct",
                 factor=_lu.lu_factor, apply=_lu.lu_apply)
 register_method("cholesky", _chol.solve, kind="direct",
                 factor=_chol.cholesky_factor_state, apply=_chol.cholesky_apply)
+register_method("qr", _qr.solve, kind="direct", rectangular=True,
+                factor=_qr.qr_factor_state, apply=_qr.qr_apply)
 register_method("cg", krylov.cg)
 register_method("pipelined_cg", krylov.pipelined_cg)
 register_method("bicg", krylov.bicg, requires=("matvec_t",))
 register_method("bicgstab", krylov.bicgstab)
 register_method("gmres", krylov.gmres, requires=("gram",),
                 extra=("restart",))
+register_method("lsqr", krylov.lsqr, requires=("matvec_t",),
+                rectangular=True)
+register_method("cgls", krylov.cgls, requires=("matvec_t",),
+                rectangular=True)
 
 DIRECT = available_methods("direct")
 ITERATIVE = available_methods("iterative")
@@ -152,8 +165,10 @@ def _solve_direct(entry: SolverEntry, a, b, *, block_size: int,
                   backend: str, tol: float, return_info: bool):
     """``apply(factor(a), b)``; with ``return_info``, the reference's direct
     SolveResult: iterations 0, the true residual ‖b − Ax‖ (Frobenius for a
-    block of right-hand sides), converged = residual ≤ tol·‖b‖, and
-    ``fail_code`` / ``fail_iter`` 0."""
+    block of right-hand sides) — for a rectangular least-squares system the
+    normal-equations residual ‖Aᵀ(b − Ax)‖ against ‖Aᵀb‖, since ‖b − Ax‖
+    does not vanish at the solution — converged = residual ≤ tol·‖b‖ (or
+    tol·‖Aᵀb‖), and ``fail_code`` / ``fail_iter`` 0."""
     _check_dense_direct(a)
     if b.ndim not in (1, 2) or b.shape[0] != a.shape[0]:
         raise ValueError(f"b must be ({a.shape[0]},) or ({a.shape[0]}, k), "
@@ -163,12 +178,39 @@ def _solve_direct(entry: SolverEntry, a, b, *, block_size: int,
         x = entry.apply(entry.factor(a, **kw), b, **kw)
         if not return_info:
             return x
-        res = torch.linalg.norm(b - a @ x)
-    bnorm = torch.linalg.norm(b)
+        rvec, refvec = b - a @ x, b
+        if a.shape[0] != a.shape[1]:
+            rvec, refvec = a.T @ rvec, a.T @ b
+        res = torch.linalg.norm(rvec)
+    bnorm = torch.linalg.norm(refvec)
     atol = tol * torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
     zero = torch.zeros((), dtype=torch.int32, device=x.device)
     return _with_fail_reason(SolveResult(
         x, 0, res, res <= atol, {"fail_code": zero, "fail_iter": zero}))
+
+
+def _audit_rectangular(entry: SolverEntry, a, precond, engine: str) -> None:
+    """The reference's non-square audit: least squares is an explicit
+    opt-in (``rectangular=True`` methods), runs unpreconditioned, and is
+    not an iterative ``engine='spmd'`` solve."""
+    if len(a.shape) < 2 or a.shape[-2] == a.shape[-1]:
+        return
+    if not entry.rectangular:
+        raise ValueError(
+            f"matrix is non-square {tuple(a.shape)}; method {entry.name!r} "
+            "solves square systems only — rectangular least squares: "
+            "method='qr' (direct, TSQR under engine='spmd') or "
+            "method='lsqr'/'cgls' (iterative, matrix-free)")
+    if precond is not None:
+        raise ValueError(
+            "preconditioners are square-operator state; the "
+            "least-squares path runs unpreconditioned (cgls accepts a "
+            "normal-equations M via the driver API)")
+    if engine == "spmd" and entry.kind != "direct":
+        raise ValueError(
+            "rectangular engine='spmd' is the TSQR factorization — "
+            "use method='qr'; the iterative least-squares drivers run "
+            "on engine='gspmd' (sharded or local)")
 
 
 def _to_device(v, dev: torch.device):
@@ -198,11 +240,15 @@ def solve(a, b, *, method: str = "lu", mesh=None, engine: str = "gspmd",
     update, or the direct methods' panel update and triangular solves);
     float64 runs the plain tensor path on the same device, except that
     every matvec on a BSR, float32 or float64, runs the SpMV kernel.
-    Direct methods (``"lu"``, the default, and ``"cholesky"``) take ``b``
-    of shape (n,) or (n, k) and no ``x0``.  ``precond`` is ``None``,
-    ``"jacobi"``, ``"block_jacobi"`` (blocks of ``block_size``; a BSR's
-    own bricks), ``"ssor"`` (BSR only), a :class:`~repro_torch.core.precond
-    .Preconditioner`, or a callable ``v -> M⁻¹ v``.  ``**method_kwargs``
+    Direct methods (``"lu"``, the default, ``"cholesky"`` and ``"qr"``)
+    take ``b`` of shape (n,) or (n, k) and no ``x0``.  A non-square (m, n)
+    ``a``, m ≥ n, is a least-squares problem for ``"qr"``, ``"lsqr"`` and
+    ``"cgls"`` (``b`` of length m, no preconditioner); ``return_info`` then
+    reports the normal-equations residual ‖Aᵀ(b − Ax)‖.  ``precond`` is
+    ``None``, ``"jacobi"``, ``"block_jacobi"`` (blocks of ``block_size``; a
+    BSR's own bricks), ``"ssor"`` (BSR only), a
+    :class:`~repro_torch.core.precond.Preconditioner`, or a callable
+    ``v -> M⁻¹ v``.  ``**method_kwargs``
     forwards the options a method declares in its registry ``extra``.
     """
     dev = _device.resolve(device)
@@ -218,19 +264,16 @@ def solve(a, b, *, method: str = "lu", mesh=None, engine: str = "gspmd",
                         f"{list(entry.extra)}")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected {ENGINES}")
-    if mesh is not None or engine == "spmd":
-        raise ValueError("distributed engines (mesh=, engine='spmd') are "
-                         "not ported yet; solve on one device with "
-                         "mesh=None")
     _blocking.check_backend_name(backend)
     if entry.kind == "direct" and x0 is not None:
         raise ValueError(f"x0 is an iterative-method initial guess; "
                          f"direct method {method!r} ignores it — drop x0 "
                          "or pick an iterative method")
-    if a.ndim == 2 and a.shape[0] != a.shape[1]:
-        raise ValueError(
-            f"matrix is non-square {tuple(a.shape)}; method {method!r} "
-            "solves square systems only")
+    _audit_rectangular(entry, a, precond, engine)
+    if mesh is not None or engine == "spmd":
+        raise ValueError("distributed engines (mesh=, engine='spmd') are "
+                         "not ported yet; solve on one device with "
+                         "mesh=None")
     if entry.kind == "direct":
         if sparse:
             raise ValueError(f"direct method {method!r} is dense-only; "
@@ -239,8 +282,8 @@ def solve(a, b, *, method: str = "lu", mesh=None, engine: str = "gspmd",
         return _solve_direct(entry, a, b, block_size=block_size,
                              backend=backend, tol=tol,
                              return_info=return_info)
-    if b.ndim != 1 or b.shape[0] != a.shape[-1]:
-        raise ValueError(f"b must be a vector of length {a.shape[-1]}, got "
+    if b.ndim != 1 or b.shape[0] != a.shape[0]:
+        raise ValueError(f"b must be a vector of length {a.shape[0]}, got "
                          f"shape {tuple(b.shape)}")
 
     op = _operator.make_operator(a, mesh=mesh, backend=backend)

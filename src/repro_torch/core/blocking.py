@@ -1,5 +1,5 @@
 """Backend names and the block / padding policy (port of
-:mod:`repro.core.blocking`, the parts the iterative path needs).
+:mod:`repro.core.blocking`, the parts the ported paths need).
 
 ``block_size`` is clamped to ``n`` and, when the clamped block does not
 divide ``n``, the operands are padded up to the next block multiple.  The
@@ -69,6 +69,41 @@ def working_copy(a: torch.Tensor, block_size: int
     n0 = a.shape[-1]
     a, nb, n = pad_system(a, block_size)
     return (a.clone() if n == n0 else a), nb, n
+
+
+def pad_rect(a: torch.Tensor, block_size: int
+             ) -> tuple[torch.Tensor, int, int, int]:
+    """Rectangular pad policy of the least-squares (QR) path: pad rows and
+    columns independently up to block multiples.  Returns ``(a_padded, nb,
+    m_padded, n_padded)``; ``a`` itself when it needs no pad.
+
+    The padded matrix is ``[[A, 0], [0, E]]`` with ``E = [I; 0]``: one unit
+    column per pad column, each on its own pad row (rows are padded by
+    whole blocks until they can host them).  It keeps full column rank, its
+    R factor is ``[[R, 0], [0, ±I]]``, and a zero-padded right-hand side
+    solves to exact zeros in the pad components.  Raises on a non-2-D
+    input, ``block_size < 1`` and an underdetermined ``m < n``, with the
+    reference's messages.
+    """
+    if a.ndim != 2:
+        raise ValueError(f"expected a 2-D (m, n) matrix, got "
+                         f"{tuple(a.shape)}")
+    m, n = a.shape
+    if m < n:
+        raise ValueError(
+            f"underdetermined system {tuple(a.shape)} (m < n): the QR/LSQR "
+            "path solves least squares for m >= n; solve the transposed "
+            "system for the minimum-norm solution")
+    nb = choose_block(n, block_size)
+    n_pad = padded_size(n, nb)
+    m_pad = padded_size(m, nb)
+    while m_pad - m < n_pad - n:
+        m_pad += nb
+    if (m_pad, n_pad) != (m, n):
+        a = F.pad(a, (0, n_pad - n, 0, m_pad - m))
+        pad = torch.arange(n_pad - n, device=a.device)
+        a[m + pad, n + pad] = 1
+    return a, nb, m_pad, n_pad
 
 
 def pad_rhs(b: torch.Tensor, n_padded: int) -> torch.Tensor:

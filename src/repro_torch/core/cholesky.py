@@ -5,7 +5,9 @@ Per block step: the (nb, nb) Cholesky of the diagonal block, the panel's
 triangular solve L21 = A21·Lkk⁻ᵀ, and the rank-nb SYRK update of the
 trailing matrix.  ``backend="cuda"`` with float32 and ``fuse_panel=True``
 runs the solve and the update as one call of the hand-written kernel
-(:mod:`repro_torch.kernels.factor_fused`); otherwise they are
+(:mod:`repro_torch.kernels.factor_fused`); with ``fuse_panel=False`` they
+are the triangular-solve kernel (:mod:`repro_torch.kernels.trsm`) and the
+tiled GEMM kernel (:mod:`repro_torch.kernels.gemm`); otherwise
 ``solve_triangular`` and a matrix product, in the input's dtype.
 
 As in :mod:`repro_torch.core.lu`, k is a host integer, each step slices its
@@ -17,7 +19,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import blocking
-from repro_torch.core.lu import kernel_route
 from repro_torch.core.triangular import (solve_lower_blocked,
                                          solve_upper_blocked)
 from repro_torch.kernels import ops
@@ -32,8 +33,7 @@ def cholesky_factor(a: torch.Tensor, block_size: int = 128, mesh=None,
         raise ValueError("the distributed Cholesky (mesh=) is not ported "
                          "yet; drop mesh= for the single-device "
                          "factorization")
-    backend = blocking.effective_backend(backend, a.dtype)
-    fused = kernel_route(backend, fuse_panel, a)
+    kernels = blocking.effective_backend(backend, a.dtype) == "cuda"
     a, nb, n = blocking.working_copy(a, block_size)
     eye = torch.eye(nb, dtype=a.dtype, device=a.device)
     for k in range(0, n, nb):
@@ -46,10 +46,15 @@ def cholesky_factor(a: torch.Tensor, block_size: int = 128, mesh=None,
         fac = torch.linalg.cholesky_ex((akk + akk.T) / 2)
         lkk = torch.where(fac.info == 0, fac.L, torch.nan)
         a[k:k + nb, k:k + nb] = lkk
-        if fused:
+        if kernels and fuse_panel:
             linv = torch.linalg.solve_triangular(lkk, eye, upper=False)
             ops.cholesky_panel_update(a, linv, k, nb=nb)
-        else:
+        elif kernels and k + nb < n:     # the last step has no L21
+            # L21 = C·Lkk⁻ᵀ: Lkk L21ᵀ = Cᵀ
+            l21 = ops.trsm_lower(lkk, a[k + nb:, k:k + nb].T).T
+            a[k + nb:, k:k + nb] = l21
+            a[k + nb:, k + nb:] -= ops.matmul(l21, l21.T)
+        elif not kernels:
             colblk = a[k + nb:, k:k + nb]
             l21 = torch.linalg.solve_triangular(lkk, colblk.T,
                                                 upper=False).T

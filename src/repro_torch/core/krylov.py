@@ -1,5 +1,6 @@
 """Non-stationary iterative solvers (port of :mod:`repro.core.krylov`): CG,
-pipelined CG, BiCG, BiCGSTAB and GMRES(m).
+pipelined CG, BiCG, BiCGSTAB and GMRES(m), and the least-squares CGLS and
+LSQR.
 
 Each solver is written once against the
 :class:`repro_torch.core.operator.LinearOperator` primitive set, and also
@@ -26,8 +27,11 @@ from repro_torch.core.operator import LinearOperator, as_operator
 from repro_torch.resilience import monitor
 
 # divergence cutoffs, in the metric each solver carries: the CG family
-# tracks SQUARED norms (1e8 on ⟨r,r⟩ is 1e4 on ‖r‖), GMRES plain norms
+# tracks SQUARED norms (1e8 on ⟨r,r⟩ is 1e4 on ‖r‖), GMRES and LSQR plain
+# norms; CGLS cuts off early on ‖Aᵀr‖², since the normal equations square
+# cond(A)
 _DIV_SQ = 1e8
+_DIV_CGLS_SQ = 1e2
 _DIV_NORM = 1e6
 
 # arnoldi_process's continuation directions are drawn from a generator
@@ -325,3 +329,121 @@ def gmres(op: LinearOperator | Callable, b: torch.Tensor,
                            stagnation=3)
         k += 1
     return SolveResult(x, k, res, res <= atol, monitor.info(h))
+
+
+# --------------------------------------------------------------------------
+# Iterative least squares: CGLS and LSQR.  They need only matvec / matvec_t,
+# so every engine runs them; x lives in the n-space and r in the m-space.
+# Convergence is on the normal-equations residual ‖Aᵀr‖ ≤ tol·‖Aᵀb‖, which
+# vanishes at the least-squares solution when ‖r‖ does not, and
+# ``SolveResult.residual`` reports ‖Aᵀr‖.
+# --------------------------------------------------------------------------
+
+def _ls_setup(op: LinearOperator, b, x0):
+    """(x0, r0, the atol reference ‖Aᵀb‖) of the least-squares drivers."""
+    sb = op.matvec_t(b)
+    x0 = torch.zeros_like(sb) if x0 is None else x0
+    r0 = b - op.matvec(x0)
+    ref = op.norm(sb)
+    return x0, r0, torch.where(ref == 0, torch.ones_like(ref), ref)
+
+
+def cgls(op: LinearOperator | Callable, b: torch.Tensor,
+         x0: torch.Tensor | None = None, *, tol: float = 1e-6,
+         maxiter: int = 1000, precond: Callable | None = None,
+         matvec_t: Callable | None = None) -> SolveResult:
+    """CG on the normal equations AᵀA x = Aᵀb without forming AᵀA
+    (Björck); ``precond`` acts on the n-space normal-equations residual
+    (M ≈ (AᵀA)⁻¹).  In float32 CGLS reaches its attainable accuracy early
+    and then diverges, so the best iterate is carried and returned, and
+    the monitor stops once ‖Aᵀr‖² grows ``_DIV_CGLS_SQ``× past its best."""
+    op = as_operator(op, matvec_t=matvec_t)
+    m = precond
+    x, r, ref = _ls_setup(op, b, x0)
+    atol = tol * ref
+
+    s = op.matvec_t(r)
+    z = s if m is None else m(s)
+    p = z
+    gamma = op.dot(s, z)
+    ss = gamma if m is None else op.dot(s, s)
+    h = monitor.init(ss)
+    xb, ssb = x, ss
+    k = 0
+    while k < maxiter and _running(ss, atol, h):
+        q = op.matvec(p)
+        alpha = _safe_div(gamma, op.dot(q, q))
+        x, r = op.axpy_pair(x, p, r, q, alpha)     # fused when m == n
+        s = op.matvec_t(r)
+        z = s if m is None else m(s)
+        gamma_new = op.dot(s, z)
+        ss = gamma_new if m is None else op.dot(s, s)
+        improved = (ss < ssb).to(x.dtype)
+        xb = xb + op.scale(improved, x - xb)
+        ssb = torch.minimum(ss, ssb)
+        beta = _safe_div(gamma_new, gamma)
+        p = z + op.scale(beta, p)
+        # gamma = 0 only via breakdown (⟨q, q⟩ or ⟨s, z⟩ vanished: the
+        # solution reached, or M indefinite)
+        brk = (gamma_new.abs() == 0) & (torch.sqrt(ss) > atol)
+        h = monitor.update(h, ss, k + 1, breakdown=brk,
+                           divergence=_DIV_CGLS_SQ)
+        gamma = gamma_new
+        k += 1
+    res = torch.sqrt(ssb)
+    return SolveResult(xb, k, res, res <= atol, monitor.info(h))
+
+
+def lsqr(op: LinearOperator | Callable, b: torch.Tensor,
+         x0: torch.Tensor | None = None, *, tol: float = 1e-6,
+         maxiter: int = 1000, precond: Callable | None = None,
+         matvec_t: Callable | None = None) -> SolveResult:
+    """LSQR (Paige & Saunders 1982): Golub-Kahan bidiagonalization with
+    the QR factors updated by Givens rotations — analytically CGLS, but
+    more reliable on ill-conditioned systems."""
+    if precond is not None:
+        raise ValueError("lsqr is unpreconditioned (the bidiagonalization "
+                         "has no symmetric place to put M); use method="
+                         "'cgls', whose preconditioner acts on the normal "
+                         "equations")
+    op = as_operator(op, matvec_t=matvec_t)
+    x, r, ref = _ls_setup(op, b, x0)
+    atol = tol * ref
+
+    beta = op.norm(r)
+    one = torch.ones_like(beta)
+    u = op.scale(_safe_div(one, beta), r)
+    av = op.matvec_t(u)
+    alfa = op.norm(av)
+    v = op.scale(_safe_div(one, alfa), av)
+    w, phibar, rhobar = v, beta, alfa
+    arnorm = alfa * beta                      # ‖Aᵀr₀‖ exactly at x₀
+    h = monitor.init(arnorm)
+    k = 0
+    while k < maxiter and _running(arnorm, atol, h, sq=False):
+        # continue the bidiagonalization
+        u = op.matvec(v) - op.scale(alfa, u)
+        beta = op.norm(u)
+        u = op.scale(_safe_div(one, beta), u)
+        v = op.matvec_t(u) - op.scale(beta, v)
+        alfa = op.norm(v)
+        v = op.scale(_safe_div(one, alfa), v)
+        # Givens rotation on the lower-bidiagonal R
+        rho = torch.sqrt(rhobar * rhobar + beta * beta)
+        cs = _safe_div(rhobar, rho)
+        sn = _safe_div(beta, rho)
+        theta = sn * alfa
+        rhobar = -cs * alfa
+        phi = cs * phibar
+        phibar = sn * phibar
+        # solution and direction update
+        x = x + op.scale(_safe_div(phi, rho), w)
+        w = v - op.scale(_safe_div(theta, rho), w)
+        # ‖Aᵀr_k‖ = φ̄_{k+1} α_{k+1} |c_k|; an exact breakdown (β or α hit
+        # zero: the solution reached) reports as converged
+        arnorm = phibar * alfa * cs.abs()
+        arnorm = torch.where((beta == 0) | (alfa == 0),
+                             torch.zeros_like(arnorm), arnorm)
+        h = monitor.update(h, arnorm, k + 1, divergence=_DIV_NORM)
+        k += 1
+    return SolveResult(x, k, arnorm, arnorm <= atol, monitor.info(h))

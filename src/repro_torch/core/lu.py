@@ -5,8 +5,12 @@ The paper's delayed-update LU: per block step, a pivoted factorization of
 the (n − k, nb) panel, then the panel row's triangular solve and one
 rank-nb update of the trailing matrix.  ``backend="cuda"`` with float32
 and ``fuse_panel=True`` runs that solve-and-update as one call of the
-hand-written kernel (:mod:`repro_torch.kernels.factor_fused`); otherwise
-it is ``solve_triangular`` plus a matrix product, in the input's dtype.
+hand-written kernel (:mod:`repro_torch.kernels.factor_fused`); with
+``fuse_panel=False`` it is the triangular-solve kernel
+(:mod:`repro_torch.kernels.trsm`) and the tiled GEMM kernel
+(:mod:`repro_torch.kernels.gemm`), as the reference composes them;
+otherwise ``solve_triangular`` plus a matrix product, in the input's
+dtype.
 
 The reference steps a fixed-shape ``lax.fori_loop`` over masked full-size
 windows.  Here the step offset k is a host integer, so each step slices
@@ -56,20 +60,6 @@ def _panel_factor(pan: torch.Tensor):
     return perm, pivots
 
 
-def kernel_route(backend: str, fuse_panel: bool, a: torch.Tensor) -> bool:
-    """True when a factorization step runs the fused kernel (or its plain
-    version on a CPU tensor).  The unfused kernel route waits for kernel 7
-    and raises on a CUDA tensor; on a CPU tensor it is the plain route."""
-    if backend != "cuda":
-        return False
-    if not fuse_panel and a.device.type == "cuda":
-        raise NotImplementedError(
-            "fuse_panel=False with backend='cuda' composes the tiled GEMM "
-            "kernel (kernel 7, repro.kernels.gemm.matmul), which is not "
-            "ported yet; use fuse_panel=True or backend='ref'")
-    return fuse_panel
-
-
 def lu_factor(a: torch.Tensor, block_size: int = 128, mesh=None,
               backend: str = "ref", fuse_panel: bool = True
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -78,8 +68,7 @@ def lu_factor(a: torch.Tensor, block_size: int = 128, mesh=None,
     if mesh is not None:
         raise ValueError("the distributed LU (mesh=) is not ported yet; "
                          "drop mesh= for the single-device factorization")
-    backend = blocking.effective_backend(backend, a.dtype)
-    fused = kernel_route(backend, fuse_panel, a)
+    kernels = blocking.effective_backend(backend, a.dtype) == "cuda"
     a, nb, n = blocking.working_copy(a, block_size)
     perm_total = torch.arange(n, device=a.device)
     cols = torch.arange(nb, device=a.device)
@@ -95,11 +84,16 @@ def lu_factor(a: torch.Tensor, block_size: int = 128, mesh=None,
         a[k:, k:k + nb] = pan
         perm_total[k:] = perm_total[k:][perm]
         l11 = a[k:k + nb, k:k + nb]
-        if fused:
+        if kernels and fuse_panel:
             linv = torch.linalg.solve_triangular(l11, eye, upper=False,
                                                  unitriangular=True)
             ops.lu_panel_update(a, linv, k, nb=nb)
-        else:
+        elif kernels and k + nb < n:     # the last step has no A12
+            u12 = ops.trsm_lower(l11.contiguous(), a[k:k + nb, k + nb:],
+                                 unit_diagonal=True)
+            a[k:k + nb, k + nb:] = u12
+            a[k + nb:, k + nb:] -= ops.matmul(a[k + nb:, k:k + nb], u12)
+        elif not kernels:
             u12 = torch.linalg.solve_triangular(
                 l11, a[k:k + nb, k + nb:], upper=False, unitriangular=True)
             a[k:k + nb, k + nb:] = u12

@@ -6,11 +6,13 @@ against the primitive set
 * ``matvec`` / ``matvec_t`` — y = A x and y = Aᵀ x,
 * ``dot`` / ``dots`` / ``dotm`` — inner products (``dots`` may fuse several),
 * ``update`` — the fused x += αp; r −= αAp; ⟨r,r⟩ pass,
+* ``axpy_pair`` — least squares' paired (x + αp, r − αq),
 * ``pipelined_dots`` — pipelined CG's single fused reduction,
 * ``scale`` / ``norm`` — helpers.
 
 :class:`DenseOperator` with ``backend="cuda"`` sends ``update`` and
-``pipelined_dots`` of float32 vectors through the hand-written kernels of
+``pipelined_dots`` of float32 vectors, and ``axpy_pair`` when both pairs
+have one shape, through the hand-written kernels of
 :mod:`repro_torch.kernels.krylov_fused`.  Its matvecs are plain products,
 as in the reference, where they were left to XLA.  The sparse engine
 (:mod:`repro_torch.sparse.operator`) subclasses it and sends its matvecs
@@ -59,6 +61,13 @@ class LinearOperator:
         xn = x + self.scale(alpha, p)
         rn = r - self.scale(alpha, ap)
         return xn, rn, self.dot(rn, rn)
+
+    def axpy_pair(self, x, p, r, q, alpha):
+        """(x + αp, r − αq) — the paired axpys of CGLS.  ``x``/``p`` live in
+        the solution space and ``r``/``q`` in the residual space, so the
+        pairs may differ in length; engines fuse the pass when both have
+        one length."""
+        return x + self.scale(alpha, p), r - self.scale(alpha, q)
 
     def pipelined_dots(self, r, u, w):
         """(⟨r,u⟩, ⟨w,u⟩, ⟨r,r⟩) — pipelined CG's single reduction."""
@@ -115,6 +124,14 @@ class DenseOperator(LinearOperator):
             return ops.fused_pipelined_dots(r, u, w)
         return super().pipelined_dots(r, u, w)
 
+    def axpy_pair(self, x, p, r, q, alpha):
+        # one fused pass when both pairs share a shape (square systems);
+        # a rectangular system takes the two plain axpys
+        if self._fusable(x) and x.shape == r.shape:
+            xn, rn, _ = ops.fused_cg_update(x, r, p, q, alpha)
+            return xn, rn
+        return super().axpy_pair(x, p, r, q, alpha)
+
 
 def as_operator(op, *, matvec_t: Callable | None = None) -> LinearOperator:
     """Adapt a bare matvec callable into the operator interface; pass
@@ -128,7 +145,7 @@ def as_operator(op, *, matvec_t: Callable | None = None) -> LinearOperator:
 
 def make_operator(a, *, mesh=None, backend: str = "ref") -> LinearOperator:
     """The engine for ``a``: a sparse matrix → :class:`~repro_torch.sparse
-    .operator.SparseOperator`, a dense (n, n) tensor →
+    .operator.SparseOperator`, a dense (m, n) tensor →
     :class:`DenseOperator`.  Distributed (``mesh=``) and batched (B, n, n)
     engines are not ported yet and raise."""
     if getattr(a, "is_sparse", False):
@@ -143,7 +160,7 @@ def make_operator(a, *, mesh=None, backend: str = "ref") -> LinearOperator:
         raise ValueError("distributed engines (mesh=) are not ported yet; "
                          "drop mesh= for the single-device engine")
     if a.ndim != 2:
-        raise ValueError(f"only dense (n, n) systems are ported; got shape "
+        raise ValueError(f"only dense (m, n) systems are ported; got shape "
                          f"{tuple(a.shape)} (batched and sparse engines are "
                          "not ported yet)")
     return DenseOperator(a, backend=backend)

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import precond as _precond
+from repro_torch.core import qr as _qr
 from repro_torch.sparse import formats as _formats
 
 
@@ -65,6 +66,18 @@ def cholesky_state_from_numpy(l, *, device=None):
     :func:`repro.core.cholesky.cholesky_factor`, for
     :func:`repro_torch.core.cholesky.cholesky_apply`."""
     return (_tensor(l, _device.resolve(device)),)
+
+
+def qr_state_from_numpy(qr, taus, tmats, m0: int, n0: int, nb: int, *,
+                        device=None) -> _qr.QrState:
+    """A ``method="qr"`` factor state from the arrays of a
+    :class:`repro.core.qr.QrState` (packed ``qr``, ``taus``, ``tmats``) and
+    its logical shape ``m0``, ``n0`` and block ``nb``, for
+    :func:`repro_torch.core.qr.qr_apply`."""
+    dev = _device.resolve(device)
+    return _qr.QrState(_tensor(qr, dev), _tensor(taus, dev),
+                       _tensor(tmats, dev), m0=int(m0), n0=int(n0),
+                       nb=int(nb))
 
 
 def bsr_from_numpy(data, indices, indptr, shape, nb, *, device=None

@@ -4,8 +4,8 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with :mod:`ctypes`.  The
 build runs on first use, never at import, into ``build/`` beside this file
 (listed in ``.gitignore``).  The library's name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -45,7 +45,8 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same source and
     flags exists; return the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
     if out.exists():

@@ -27,105 +27,17 @@
 // matrix.  The scratch keeps every block from reading values that another
 // block is writing, so the step works in place on the working matrix.
 // Each 128 x 128 output tile belongs to one block, which sums its products
-// in a fixed order: no atomics, and reruns are bitwise equal.  The tile is a
-// plain shared-memory SIMT GEMM (8 x 8 outputs a thread); TMA, wgmma and
-// double buffering are left for later work.
+// in a fixed order: no atomics, and reruns are bitwise equal.  The tile is
+// the shared SIMT GEMM of tile_gemm.cuh (8 x 8 outputs a thread, the next
+// slice's loads in flight while the current one multiplies), unsplit: the
+// trailing block's tiles fill the card.  TMA and wgmma are left for later
+// work.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "tile_gemm.cuh"
 
 namespace {
 
-constexpr int kBM = 128;      // output tile rows
-constexpr int kBN = 128;      // output tile columns
-constexpr int kBK = 8;        // depth of one staged slice
-constexpr int kThreads = 256; // 16 x 16 threads, 8 x 8 outputs each
-
-// A strided matrix view: element (i, q) at p[i * rs + q * cs].
-struct View {
-  const float* p;
-  int64_t rs, cs;
-  __device__ __forceinline__ float at(int i, int q) const {
-    return p[static_cast<int64_t>(i) * rs + static_cast<int64_t>(q) * cs];
-  }
-};
-
-// C[i, j] = S[i, j] (kSub false) or C[i, j] - S[i, j] (kSub true), with
-// S = sum over q < K of A(i, q) B(q, j), for i < M and j < N.
-template <bool kSub>
-__global__ void __launch_bounds__(kThreads)
-tile_gemm_kernel(View A, View B, float* __restrict__ c, int64_t ldc, int M,
-                 int N, int K) {
-  // padded rows: the staging stores below are free of bank conflicts
-  __shared__ float As[kBK][kBM + 4];
-  __shared__ float Bs[kBK][kBN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
-  // stage along whichever index is contiguous in memory (coalesced loads)
-  const bool a_q_fast = A.cs == 1;
-  const bool b_j_fast = B.cs == 1;
-
-  float acc[8][8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int s = 0; s < 8; ++s) acc[r][s] = 0.f;
-
-  for (int q0 = 0; q0 < K; q0 += kBK) {
-#pragma unroll
-    for (int s = 0; s < kBM * kBK / kThreads; ++s) {
-      const int idx = tid + s * kThreads;
-      const int qq = a_q_fast ? idx % kBK : idx / kBM;
-      const int ii = a_q_fast ? idx / kBK : idx % kBM;
-      const int i = i0 + ii, q = q0 + qq;
-      As[qq][ii] = (i < M && q < K) ? A.at(i, q) : 0.f;
-    }
-#pragma unroll
-    for (int s = 0; s < kBN * kBK / kThreads; ++s) {
-      const int idx = tid + s * kThreads;
-      const int qq = b_j_fast ? idx / kBN : idx % kBK;
-      const int jj = b_j_fast ? idx % kBN : idx / kBK;
-      const int j = j0 + jj, q = q0 + qq;
-      Bs[qq][jj] = (j < N && q < K) ? B.at(q, j) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int qq = 0; qq < kBK; ++qq) {
-      float av[8], bv[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) av[r] = As[qq][ty + 16 * r];
-#pragma unroll
-      for (int s = 0; s < 8; ++s) bv[s] = Bs[qq][tx + 16 * s];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int s = 0; s < 8; ++s) acc[r][s] = fmaf(av[r], bv[s], acc[r][s]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int i = i0 + ty + 16 * r;
-    if (i >= M) continue;
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const int j = j0 + tx + 16 * s;
-      if (j >= N) continue;
-      float* o = c + static_cast<int64_t>(i) * ldc + j;
-      *o = kSub ? *o - acc[r][s] : acc[r][s];
-    }
-  }
-}
-
-template <bool kSub>
-int launch(View A, View B, float* c, int64_t ldc, int M, int N, int K,
-           cudaStream_t s) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  tile_gemm_kernel<kSub><<<grid, kThreads, 0, s>>>(A, B, c, ldc, M, N, K);
-  return static_cast<int>(cudaGetLastError());
-}
+using tile::View;
 
 int check_args(int device, int64_t n, int64_t k, int nb) {
   if (n <= 0 || nb <= 0 || k < 0 || k + nb > n || n > (1LL << 30))
@@ -154,11 +66,13 @@ int factor_lu_panel_update(float* a, int64_t n, const float* linv, int64_t k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* row = a + k * n + k + nb;      // panel row block, trailing columns
   // U12 = Linv R into the scratch
-  err = launch<false>(View{linv, nb, 1}, View{row, n, 1}, u, m, nb, m, nb, s);
+  err = tile::gemm<false>(View{linv, nb, 1}, View{row, n, 1}, u, m, nb, m,
+                          nb, nullptr, 1, s);
   if (err) return err;
   // A22 -= L21 U12
   float* l21 = a + (k + nb) * n + k;
-  err = launch<true>(View{l21, n, 1}, View{u, m, 1}, l21 + nb, n, m, m, nb, s);
+  err = tile::gemm<true>(View{l21, n, 1}, View{u, m, 1}, l21 + nb, n, m, m,
+                         nb, nullptr, 1, s);
   if (err) return err;
   // U12 into the panel row block (after the solve has read all of R)
   return static_cast<int>(cudaMemcpy2DAsync(
@@ -179,13 +93,13 @@ int factor_cholesky_panel_update(float* a, int64_t n, const float* linv,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* col = a + (k + nb) * n + k;    // panel column block, rows below
   // L21 = C Linv^T into the scratch: B(q, j) = linv[j, q]
-  err = launch<false>(View{col, n, 1}, View{linv, 1, nb}, l, nb, m, nb, nb,
-                      s);
+  err = tile::gemm<false>(View{col, n, 1}, View{linv, 1, nb}, l, nb, m, nb,
+                          nb, nullptr, 1, s);
   if (err) return err;
   // A22 -= L21 L21^T over the whole trailing block (both triangles, as the
   // TPU kernel does): B(q, j) = l[j, q]
-  err = launch<true>(View{l, nb, 1}, View{l, 1, nb}, col + nb, n, m, m, nb,
-                     s);
+  err = tile::gemm<true>(View{l, nb, 1}, View{l, 1, nb}, col + nb, n, m, m,
+                         nb, nullptr, 1, s);
   if (err) return err;
   // L21 into the panel column block
   return static_cast<int>(cudaMemcpy2DAsync(

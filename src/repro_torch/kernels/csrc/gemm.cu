@@ -1,0 +1,53 @@
+// Tiled float32 matrix product for Hopper (sm_90a), with a plain C interface
+// for ctypes.
+//
+// Replaces the Pallas TPU kernel of src/repro/kernels/gemm.py (matmul): C =
+// A B with float32 accumulation.  The TPU kernel runs an (M/bm, N/bn, K/bk)
+// grid whose last axis is sequential, carrying the sum in a VMEM scratch
+// tile, and needs shapes that tile evenly.  Here a block loops over K itself
+// (tile_gemm.cuh), any M, N, K is taken with the ragged edges masked, and
+// the operands are strided views: the unfused QR's V^T and the factorizations'
+// trailing blocks are read in place, without a copy.
+//
+// Bound: 2 M N K flops over (M K + K N + M N) * 4 bytes.  At the unfused LU's
+// trailing update (M = N = n - k - 128, K = 128) that is ~60 flops a byte,
+// and at the unfused QR's V^T A (M = 128, K = m - k) ~64: above the H100's 20
+// flops a byte (67 TFLOP/s float32 outside the tensor cores over 3.35 TB/s),
+// so the float32 pipes bound both.  The second has only 63 output tiles at
+// n = 8192, so its K is split into parts that a fixed-order sum adds up
+// (tile_gemm.cuh).
+
+#include "tile_gemm.cuh"
+
+extern "C" {
+
+const char* gemm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Parts K is split into for these shapes; the scratch holds that many
+// (M, N) partial products when it is more than one.
+int gemm_splits(int64_t M, int64_t N, int64_t K) {
+  return tile::splits_for(M, N, K);
+}
+
+// C = A B for A(i, q) = a[i * a_rs + q * a_cs], B(q, j) = b[q * b_rs + j *
+// b_cs] and the row-major (M, N) c; M, N, K >= 1.  Returns the CUDA error
+// (0 on success).
+int gemm_matmul(const float* a, int64_t a_rs, int64_t a_cs, const float* b,
+                int64_t b_rs, int64_t b_cs, float* c, int64_t M, int64_t N,
+                int64_t K, float* scratch, int splits, int device,
+                void* stream) {
+  const int64_t lim = 1LL << 30;
+  if (M > lim || N > lim || K > lim)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaSetDevice(device));
+  if (err) return err;
+  return tile::gemm<false>(tile::View{a, a_rs, a_cs},
+                           tile::View{b, b_rs, b_cs}, c, N,
+                           static_cast<int>(M), static_cast<int>(N),
+                           static_cast<int>(K), scratch, splits,
+                           static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -10,7 +10,9 @@ any device.
 from __future__ import annotations
 
 from repro_torch.kernels import factor_fused as _factor_fused
+from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import krylov_fused as _krylov_fused
+from repro_torch.kernels import qr_fused as _qr_fused
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import spmv as _spmv
 from repro_torch.kernels import trsm as _trsm
@@ -36,6 +38,16 @@ def lu_panel_update(a, linv, k: int, *, nb: int):
 def cholesky_panel_update(a, linv, k: int, *, nb: int):
     """In place on ``a``; see :func:`factor_fused.cholesky_panel_update`."""
     return _factor_fused.cholesky_panel_update(a, linv, k, nb=nb)
+
+
+def matmul(a, b):
+    """C = A @ B in float32; see :func:`gemm.matmul`."""
+    return _gemm.matmul(a, b)
+
+
+def qr_panel_update(a, v, t, k: int, *, nb: int):
+    """In place on ``a``; see :func:`qr_fused.qr_panel_update`."""
+    return _qr_fused.qr_panel_update(a, v, t, k, nb=nb)
 
 
 def trsm_lower(l, b, *, unit_diagonal: bool = False):

@@ -50,6 +50,23 @@ def cholesky_panel_update(a: torch.Tensor, linv: torch.Tensor, k: int, *,
     return a
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B (float32 accumulation for float32 inputs)."""
+    return a @ b
+
+
+def qr_panel_update(a: torch.Tensor, v: torch.Tensor, t: torch.Tensor,
+                    k: int, *, nb: int) -> torch.Tensor:
+    """One QR trailing update on the (m, n) working matrix, in place:
+    A ← A − V·(Tᵀ·(Vᵀ·A)) on rows [k, m) and columns [k + nb, n), with V
+    the (m − k, nb) active Householder block (the full V is zero above
+    row k), so the rows above k and the columns left of k + nb are
+    untouched.  Returns ``a``."""
+    win = a[k:, k + nb:]
+    win -= v @ (t.T @ (v.T @ win))
+    return a
+
+
 def _solve_triangular(t, b, *, upper: bool, unit_diagonal: bool):
     x = torch.linalg.solve_triangular(t, b[:, None] if b.ndim == 1 else b,
                                       upper=upper,

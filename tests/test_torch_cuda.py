@@ -10,16 +10,18 @@ tolerances of the reference's Pallas kernel tests (fused vectors
 rtol = atol = 1e-5 and dots rtol 1e-4; triangular solves rtol = atol =
 1e-3; panel updates held tighter, on the change they make: atol 1e-5 of
 its largest entry, rtol two float32 ulps; the BSR SpMV rtol 1e-5 in
-float32 and 1e-12 in float64, atol the same times max|y|), at the tests'
-shapes and at the main paths' sizes, and must give bitwise-identical
-results when rerun.
+float32 and 1e-12 in float64, atol the same times max|y|; the tiled GEMM
+rtol 1e-4 and atol 1e-4 of max|C|; the QR update atol 1e-4 of the change
+it makes, rtol 1e-5), at the tests' shapes and at the main paths' sizes,
+and must give bitwise-identical results when rerun.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import api, cholesky, lu
-from repro_torch.kernels import factor_fused, krylov_fused, ref, spmv, trsm
+from repro_torch.kernels import (factor_fused, gemm, krylov_fused, qr_fused,
+                                 ref, spmv, trsm)
 from repro_torch.sparse import BSR, problems
 from repro_torch.sparse.operator import SparseOperator
 
@@ -192,12 +194,204 @@ def test_direct_solve_goes_through_the_kernels(cuda_device, method, kernel):
 
 
 @pytest.mark.cuda
-def test_unfused_kernel_route_raises_until_the_gemm_kernel_is_ported(
-        cuda_device):
-    a = torch.eye(256, device=cuda_device) * 2
-    for factor in (lu.lu_factor, cholesky.cholesky_factor):
-        with pytest.raises(NotImplementedError, match="kernel 7"):
-            factor(a, backend="cuda", fuse_panel=False)
+@pytest.mark.parametrize("method", ["lu", "cholesky"])
+def test_unfused_kernel_route_matches_the_plain_route(cuda_device, method):
+    """fuse_panel=False on the card: U12 / L21 by the triangular-solve
+    kernel, the trailing update by the tiled GEMM kernel (one product a
+    step but the last), held against the plain route at the direct tests'
+    float32 tolerance (rtol 1e-4, atol 1e-3)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    n, nb = 1000, 128                     # padded to 1024: 8 steps
+    a = rng.standard_normal((n, n))
+    a = a @ a.T / n + 4 * np.eye(n) if method == "cholesky" \
+        else a + n * np.eye(n)
+    a = torch.tensor(a, dtype=torch.float32, device=cuda_device)
+    factor = lu.lu_factor if method == "lu" else cholesky.cholesky_factor
+    before = (gemm.LAUNCHES["matmul"], trsm.LAUNCHES["trsm"])
+    got = factor(a, block_size=nb, backend="cuda", fuse_panel=False)
+    assert gemm.LAUNCHES["matmul"] == before[0] + 7
+    assert trsm.LAUNCHES["trsm"] == before[1] + 7
+    again = factor(a, block_size=nb, backend="cuda", fuse_panel=False)
+    want = factor(a, block_size=nb, backend="ref")
+    got, again, want = ((v,) if method == "cholesky" else v
+                        for v in (got, again, want))
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2)
+        if g.is_floating_point():
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-3)
+        else:
+            assert torch.equal(g, w)               # the same pivots
+
+
+# (m, n, k) and the operands' layout: ragged shapes, strided and transposed
+# views, a split K (few output tiles, a long K), then the main path's
+# products: the unfused QR's V^T A, T^T W and V Y at m = 32768, n = 8192,
+# nb = 128, k = 0, and the unfused LU's trailing update at n = 16384
+GEMM_CASES = [(1, 1, 1, "plain"), (130, 70, 33, "plain"),
+              (129, 257, 200, "views"), (128, 300, 20000, "transposed"),
+              (128, 8064, 32768, "transposed"), (128, 8064, 128, "plain"),
+              (32768, 8064, 128, "plain"), (16256, 16256, 128, "views")]
+
+
+def _gemm_operands(m, n, k, layout, dev):
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    if layout == "transposed":            # V^T read in place
+        a = torch.randn(k, m, generator=g, device=dev).T
+    elif layout == "views":               # blocks of larger matrices
+        a = torch.randn(m + 3, k + 5, generator=g, device=dev)[3:, 5:]
+    else:
+        a = torch.randn(m, k, generator=g, device=dev)
+    b = torch.randn(k + 2, n + 4, generator=g, device=dev)[2:, :n] \
+        if layout == "views" else torch.randn(k, n, generator=g, device=dev)
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,layout", GEMM_CASES)
+def test_gemm_kernel_matches_plain_version(cuda_device, m, n, k, layout):
+    """Against the plain product (cuBLAS in full float32) at rtol 1e-4 and
+    atol 1e-4 of max|C|: two float32 summation orders over K = 32768 differ
+    by ~1e-5 of |C|, a TF32 product by ~1e-3.  Reruns are bitwise equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b = _gemm_operands(m, n, k, layout, cuda_device)
+    before = gemm.LAUNCHES["matmul"]
+    got = gemm.matmul(a, b)
+    assert torch.equal(got, gemm.matmul(a, b))
+    want = ref.matmul(a, b)
+    assert got.shape == (m, n) and got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+    assert gemm.LAUNCHES["matmul"] == before + 2
+
+
+@pytest.mark.cuda
+def test_gemm_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    a = torch.ones(4, 4, device=cuda_device)
+    with pytest.raises(TypeError):
+        gemm.matmul(a.double(), a.double())
+    with pytest.raises(TypeError):
+        gemm.matmul(a.half(), a.half())
+    with pytest.raises(ValueError):
+        gemm.matmul(a, torch.ones(4, 4))              # two devices
+    assert torch.equal(gemm.matmul(a[:, :0], a[:0]),
+                       torch.zeros(4, 4, device=cuda_device))
+
+
+def _qr_step(m, n, nb, k, dev):
+    """The path's Gaussian A/√m with its panel at column k factored by the
+    port's own panel QR, and that panel's active (m − k, nb) V and its T."""
+    from repro_torch.core import qr
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    a = torch.randn(m, n, generator=g, device=dev) / m ** 0.5
+    pan = a[k:, k:k + nb]
+    taus = qr._panel_qr(pan)
+    v = qr._panel_v(pan)
+    t = qr._form_t(v, taus)
+    return a, v, t
+
+
+# (m, n, nb, k): small and ragged-in-rows shapes, then the least-squares
+# path's m = 32768, n = 8192, nb = 128 at k = 0, n/2 and n − 2nb
+QR_CASES = [(96, 64, 16, 0), (96, 64, 16, 32), (96, 80, 16, 48),
+            (1000, 256, 128, 0), (32768, 8192, 128, 0),
+            (32768, 8192, 128, 4096), (32768, 8192, 128, 7936)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,nb,k", QR_CASES)
+def test_qr_panel_update_kernel_matches_plain_version(cuda_device, m, n, nb,
+                                                      k):
+    """On real Householder panels, held on the change the update makes:
+    atol 1e-4 of its largest entry (W sums up to m − k = 32768 products),
+    rtol 1e-5; the columns left of k + nb are untouched; reruns are
+    bitwise equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, v, t = _qr_step(m, n, nb, k, cuda_device)
+    before = qr_fused.LAUNCHES["qr_panel_update"]
+    got = qr_fused.qr_panel_update(a.clone(), v, t, k, nb=nb)
+    again = qr_fused.qr_panel_update(a.clone(), v, t, k, nb=nb)
+    want = ref.qr_panel_update(a.clone(), v, t, k, nb=nb)
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, :k + nb], a[:, :k + nb])
+    change = float((want - a).abs().max())
+    assert change > 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * change)
+    assert qr_fused.LAUNCHES["qr_panel_update"] == before + 2
+
+
+@pytest.mark.cuda
+def test_qr_panel_update_launches_nothing_at_the_last_step(cuda_device):
+    a, v, t = _qr_step(96, 64, 16, 48, cuda_device)
+    before = qr_fused.LAUNCHES["qr_panel_update"]
+    assert torch.equal(qr_fused.qr_panel_update(a.clone(), v, t, 48, nb=16),
+                       a)
+    assert qr_fused.LAUNCHES["qr_panel_update"] == before
+    with pytest.raises(TypeError):
+        qr_fused.qr_panel_update(a.double(), v, t, 0, nb=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+def test_qr_solve_goes_through_the_kernels(cuda_device, fuse):
+    """qr on a padded (1000, 300) system: kernel 9 (fused) or kernel 7
+    (unfused) a step, the triangular-solve kernel in the apply; x and the
+    factor against the plain float32 route."""
+    from repro_torch.core import qr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    a = torch.tensor(rng.standard_normal((1000, 300)), dtype=torch.float32,
+                     device=cuda_device)
+    b = torch.tensor(rng.standard_normal(1000), dtype=torch.float32,
+                     device=cuda_device)
+    before = (qr_fused.LAUNCHES["qr_panel_update"], gemm.LAUNCHES["matmul"],
+              trsm.LAUNCHES["trsm"])
+    st = qr.qr_factor(a, block_size=128, backend="cuda", fuse_panel=fuse)
+    x = qr.qr_apply(st, b, backend="cuda")[:300]
+    rose = (qr_fused.LAUNCHES["qr_panel_update"] - before[0],
+            gemm.LAUNCHES["matmul"] - before[1],
+            trsm.LAUNCHES["trsm"] - before[2])
+    assert rose == ((2, 0, 1) if fuse else (0, 6, 1))   # 3 steps, 2 updates
+    want = qr.qr_factor(a, block_size=128, backend="ref")
+    torch.testing.assert_close(st.qr, want.qr, rtol=1e-3, atol=1e-4)
+    xo = np.linalg.lstsq(a.double().cpu().numpy(), b.double().cpu().numpy(),
+                         rcond=None)[0]
+    np.testing.assert_allclose(x.cpu().numpy(), xo, rtol=0,
+                               atol=1e-4 * np.abs(xo).max())
+    res = api.solve(a, b, method="qr", backend="cuda", return_info=True)
+    assert bool(res.converged) and res.x.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["lsqr", "cgls"])
+def test_least_squares_iterations_go_through_the_kernels(cuda_device,
+                                                        method):
+    """lsqr / cgls on a rectangular BSR (the SpMV kernel for Ax and Aᵀx)
+    and cgls on a square dense system (the fused update for its paired
+    axpys): converged, with the plain backend's iteration count within
+    max(1.2×, +2)."""
+    rng = np.random.default_rng(3)
+    d = rng.standard_normal((640, 256))
+    d[np.abs(d) < 1.0] = 0
+    b = rng.standard_normal(640).astype(np.float32)
+    bsr = BSR.from_dense(d.astype(np.float32), block_size=32,
+                         device=cuda_device)
+    before = spmv.LAUNCHES["bsr_matvec"]
+    res = api.solve(bsr, b, method=method, backend="cuda", tol=1e-5,
+                    return_info=True)
+    ref_res = api.solve(bsr, b, method=method, tol=1e-5, return_info=True)
+    assert spmv.LAUNCHES["bsr_matvec"] > before
+    assert bool(res.converged)
+    assert res.iterations <= max(1.2 * ref_res.iterations,
+                                 ref_res.iterations + 2)
+    if method == "cgls":
+        n = 512
+        a = (rng.standard_normal((n, n)) + n * np.eye(n)).astype(np.float32)
+        before = krylov_fused.LAUNCHES["fused_cg_update"]
+        res = api.solve(a, a[:, 0], method="cgls", backend="cuda",
+                        return_info=True)
+        assert krylov_fused.LAUNCHES["fused_cg_update"] > before
+        assert bool(res.converged)
 
 
 def _random_bsr(m, n, nb, dtype, dev, seed=0):

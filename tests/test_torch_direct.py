@@ -148,8 +148,9 @@ def test_float32_cholesky_kernel_route_matches_reference(n):
 @pytest.mark.parametrize("factor", [tlu.lu_factor,
                                     tcholesky.cholesky_factor])
 def test_unfused_route_on_cpu_is_the_plain_route(factor):
-    """fuse_panel=False composes kernel 7 on the card (not ported: it
-    raises there); on CPU tensors it runs the plain route."""
+    """fuse_panel=False composes the triangular-solve and tiled GEMM
+    kernels on the card (kernels 6 and 7); on CPU tensors their plain
+    versions give the plain route's factor, bit for bit."""
     a = _t(_matrix("spd", 100, np.float32))
     got = factor(a, block_size=NB, backend="cuda", fuse_panel=False)
     want = factor(a, block_size=NB, backend="ref")
@@ -305,7 +306,7 @@ def test_factorize_rejects_an_iterative_method():
     a = _matrix("spd", 32, np.float64)
     with pytest.raises(ValueError, match="factorize needs a direct method; "
                                          "'cg' is iterative; available: "
-                                         r"\('cholesky', 'lu'\)"):
+                                         r"\('cholesky', 'lu', 'qr'\)"):
         tapi.factorize(a, method="cg", device="cpu")
 
 
@@ -313,7 +314,7 @@ def test_default_method_is_lu():
     a, b = _matrix("gaussian", 100, np.float64), _rhs(100, np.float64)
     assert torch.equal(tapi.solve(a, b, device="cpu"),
                        tapi.solve(a, b, method="lu", device="cpu"))
-    assert tapi.DIRECT == ("cholesky", "lu")
+    assert tapi.DIRECT == ("cholesky", "lu", "qr")
 
 
 def test_unported_direct_inputs_raise():

@@ -221,9 +221,10 @@ def test_non_finite_input_raises_the_same_error(which):
 def test_unported_method_raises_unknown_method():
     a, b = _spd(N, np.float32)
     with pytest.raises(ValueError) as got:
-        tapi.solve(a, b, method="qr", device="cpu")
-    assert str(got.value) == (f"unknown method 'qr'; available: "
-                              f"{sorted(METHODS + ('lu', 'cholesky'))}")
+        tapi.solve(a, b, method="ca_cg", device="cpu")
+    assert str(got.value) == (
+        f"unknown method 'ca_cg'; available: "
+        f"{sorted(METHODS + ('lu', 'cholesky', 'qr', 'lsqr', 'cgls'))}")
     with pytest.raises(ValueError, match="unknown method 'nope'; available"):
         japi.solve(jnp.asarray(a), jnp.asarray(b), method="nope")
 

@@ -85,8 +85,34 @@ Phases, each printing its own lines; any failure exits non-zero:
    Cholesky at n = 16384, ``fuse_panel=False``: the GEMM and
    triangular-solve counters risen, the backward error at most 10× that
    of ``backend="ref"`` from phase 4b;
-5. CLI: ``repro_torch.launch.solve.main`` at n = 16384 with cg and with lu
-   on the kernels, and at ``--m 32768 --n 8192`` with qr.
+3e. Gram kernel, at the s-step path's shapes: G = V Vᵀ of Gaussian rows
+   at each (k, n) that phase 4f gives it — k = 2s + 1 (ca_cg) or s + 1
+   (ca_gmres), so k ∈ {5, 9}, at n = 16384 (the dense systems), 128³ and
+   64³ (the Poisson systems) — and at k = 17 (n = 16384 and 128³), which
+   the CLI accepts but the main path does not run, against its plain
+   version at rtol 1e-5 and atol 1e-5 · max|G|, bitwise-repeatable, timed
+   beside the plain version, ``torch.mm(v, v.T)`` (cuBLAS) and its bound
+   max(4kn bytes ÷ 3.35 TB/s, 2k²n flops ÷ 67 TFLOP/s);
+4f. s-step main path: ``api.solve(..., backend="cuda")`` against
+   ``backend="ref"`` on the card, dense n = 16384 float32 (ca_cg s = 2 on
+   the SPD system, ca_gmres s = 4 and s = 8 on ``a + nI``) and the 128³
+   Poisson BSR with a Gaussian b (ca_cg s = 2 and s = 4 and ca_gmres s = 4
+   in float32, ca_cg s = 4 in float64: the plain Gram and the SpMV kernel
+   in float64): a finite x, the same ``fail_reason`` as ``backend="ref"``;
+   where the reference converged, converged, true relative residual ≤ 1e-4
+   (float64) and iterations within max(1.2×, +2); the Gram kernel's
+   counter risen for every float32 solve and the SpMV's on the BSR; every
+   (k, n) the Gram kernel got is one that phase 3e held; time per
+   iteration and the Gram's share of the solve, beside cg's from phases 4
+   and 4c.  ``backend="ref"`` runs at most ~3000 matvecs; a method it
+   does not converge at 128³ runs at 64³, and the line says so.  float32
+   ca_cg at s = 4 on the dense SPD system runs too, as a witness: its
+   stop there is decided by the Gram's rounding in both packages, so it
+   is not held to the reference, but its best iterate's true relative
+   residual is held to 1e-2;
+5. CLI: ``repro_torch.launch.solve.main`` at n = 16384 with cg, with lu and
+   with ``--method ca_cg --s 4`` on the kernels, and at ``--m 32768 --n
+   8192`` with qr.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -189,6 +215,50 @@ LS_KERNEL_RECORD = {
     "qr_panel_update": {"source": "src/repro_torch/kernels/csrc/qr_fused.cu",
                         "replaces": "src/repro/kernels/qr_fused.py:83"},
 }
+
+
+# (method, s, system, dtype, gated): system "spd" / "nonsym" dense at
+# N_MAIN, or "poisson" on the SPARSE_GRID³ BSR (SPARSE_GRID // 2 where
+# backend="ref" does not converge there).  float32 ca_cg at s = 4 on the
+# dense SPD system is decided by rounding in both packages (its iteration
+# count and stop move with the Gram matrix's summation order: ROADMAP §3),
+# so it runs as a witness: not held to backend="ref", but its returned best
+# iterate is held to WITNESS_RESIDUAL_LIMIT; s = 2 is held.
+S_STEP_MAIN_PATH = (
+    ("ca_cg", 2, "spd", "float32", True),
+    ("ca_cg", 4, "spd", "float32", False),
+    ("ca_gmres", 4, "nonsym", "float32", True),
+    ("ca_gmres", 8, "nonsym", "float32", True),
+    ("ca_cg", 2, "poisson", "float32", True),
+    ("ca_cg", 4, "poisson", "float32", True),
+    ("ca_gmres", 4, "poisson", "float32", True),
+    ("ca_cg", 4, "poisson", "float64", True),
+)
+# the witness's true relative residual: kernel 3's readings at s = 4 on the
+# dense SPD system reach 2.1e-3 (PERF.md, PR 17), cuBLAS's 4.8e-3
+WITNESS_RESIDUAL_LIMIT = 1e-2
+
+
+def _gram_rows(method: str, s: int) -> int:
+    """k of the (k, n) basis a method's block_dots takes: ca_cg's
+    [p, …, Aˢp, r, …, Aˢ⁻¹r], ca_gmres's [v, …, Aˢv]."""
+    return 2 * s + 1 if method == "ca_cg" else s + 1
+
+
+# kernel 3's shapes on the main path: each float32 entry's k at its grid's
+# n (the Poisson entries at both grids they may run on), and k = 17
+# (s = 8 of ca_cg), which the CLI accepts but the main path does not run;
+# phase 4f fails if the kernel gets a shape outside this list
+GRAM_SHAPES = tuple(sorted({
+    (_gram_rows(method, s), n)
+    for method, s, name, dtype, _ in S_STEP_MAIN_PATH if dtype == "float32"
+    for n in ((SPARSE_GRID ** 3, (SPARSE_GRID // 2) ** 3)
+              if name == "poisson" else (N_MAIN,))})) + (
+    (17, N_MAIN), (17, SPARSE_GRID ** 3))
+GRAM_OFF_PATH_K = 17
+GRAM_RECORD_SHAPE = (9, SPARSE_GRID ** 3)   # ca_cg s = 4 on the 128³ BSR
+GRAM_RECORD = {"source": "src/repro_torch/kernels/csrc/krylov_fused.cu",
+               "replaces": "src/repro/kernels/krylov_fused.py:240"}
 
 
 class SmokeFailure(Exception):
@@ -309,7 +379,9 @@ def _systems(torch, n: int):
     return {"spd": spd, "nonsym": a}, b
 
 
-def phase_main_path(torch) -> dict:
+def phase_main_path(torch) -> tuple[dict, float]:
+    """The Krylov main path; returns the launches and steady cg's median
+    time per iteration on the kernels."""
     from repro_torch.core import api
     from repro_torch.kernels import krylov_fused
     from repro_torch.launch.solve import relative_residual
@@ -375,7 +447,7 @@ def phase_main_path(torch) -> dict:
               f"median={statistics.median(runs):.6f} runs={runs}")
     print(f"[main] steady cg: matvec {mv_ms:.6f} ms, host sync roundtrip "
           f"{sync_ms:.6f} ms")
-    return launches
+    return launches, statistics.median(steady["cuda"])
 
 
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -559,6 +631,23 @@ def _backward_error(a, b, x) -> float:
     r = b64 - a64 @ x64
     return float(r.abs().max() / (a64.abs().sum(1).max() * x64.abs().max()
                                   + b64.abs().max()))
+
+
+@contextlib.contextmanager
+def _recorded_shapes(ops, name):
+    """Collect the shapes of the first argument of every call of the
+    ``kernels.ops`` wrapper ``name``; yields the set."""
+    shapes, real = set(), getattr(ops, name)
+
+    def call(v, *args, **kw):
+        shapes.add(tuple(v.shape))
+        return real(v, *args, **kw)
+
+    setattr(ops, name, call)
+    try:
+        yield shapes
+    finally:
+        setattr(ops, name, real)
 
 
 @contextlib.contextmanager
@@ -803,7 +892,9 @@ def _poisson_system(torch, grid: int, dtype: str, seed: int):
     return a, a64, b
 
 
-def phase_sparse_main(torch, spmv_ms: float) -> dict:
+def phase_sparse_main(torch, spmv_ms: float) -> tuple[dict, dict]:
+    """The sparse main path; returns the launches and float32 cg's time per
+    iteration by grid."""
     from repro_torch.core import api
     from repro_torch.kernels import krylov_fused, spmv
     systems = {}
@@ -816,6 +907,7 @@ def phase_sparse_main(torch, spmv_ms: float) -> dict:
     def counts():
         return {**spmv.LAUNCHES, **krylov_fused.LAUNCHES}
 
+    cg_ms_per_iter = {}
     spmv.reset_launches()
     krylov_fused.reset_launches()
     for method, precond, grid, dtype, kernel in SPARSE_MAIN_PATH:
@@ -862,11 +954,13 @@ def phase_sparse_main(torch, spmv_ms: float) -> dict:
         check(rose["bsr_matvec"] > 0, f"{label}: bsr_matvec never launched")
         if kernel is not None:
             check(rose[kernel] > 0, f"{label}: {kernel} never launched")
+        if (method, precond, dtype) == ("cg", None, "float32"):
+            cg_ms_per_iter[f"poisson {grid}³"] = solve_ms / max(it, 1)
     launches = counts()
     print(f"[sparse] launches over the sparse main path: {launches}")
     systems.clear()
     torch.cuda.empty_cache()
-    return launches
+    return launches, cg_ms_per_iter
 
 
 def phase_bicgstab_witness(torch) -> None:
@@ -1192,6 +1286,170 @@ def phase_ls_main(torch, direct_ref_errors: dict) -> dict:
     return launches
 
 
+def phase_gram_kernel(torch) -> dict:
+    """Kernel 3 against its plain version at the s-step path's shapes."""
+    from repro_torch.kernels import krylov_fused, ref
+    dev = torch.device("cuda")
+    record = {}
+    for k, n in GRAM_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(k * 31 + n)
+        v = torch.randn(k, n, generator=g, device=dev)
+        got = krylov_fused.fused_gram(v)
+        again = krylov_fused.fused_gram(v)
+        want = ref.fused_gram(v)
+        torch.cuda.synchronize()
+        label = f"fused_gram k={k} n={n}"
+        where = " (outside the main path)" if k == GRAM_OFF_PATH_K else ""
+        check(torch.equal(got, again), f"{label}: reruns differ")
+        check(torch.equal(got, got.T), f"{label}: G is not symmetric")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, rtol=1e-5, atol=1e-5 * scale),
+            f"{label}: kernel and plain version differ (max abs err {err}, "
+            f"max |G| {scale})")
+        ms = time_ms(torch, lambda: krylov_fused.fused_gram(v))
+        plain_ms = time_ms(torch, lambda: ref.fused_gram(v))
+        library_ms = time_ms(torch, lambda: torch.mm(v, v.T))
+        flops, nbytes = 2.0 * k * k * n, 4.0 * (k * n + k * k)
+        bound_ms, bound_by = _bound(flops, nbytes)
+        print(f"[gram-kernel] {label}{where} max_abs_err={err:.3e} "
+              f"max_abs_g={scale:.3e} bitwise_rerun=True ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} "
+              f"bound_by={bound_by} library_ms={library_ms:.6f} "
+              f"(torch.mm(v, v.T), cuBLAS) "
+              f"achieved_GBps={nbytes / ms / 1e6:.1f} "
+              f"bound_share={bound_ms / ms:.4f}")
+        if (k, n) == GRAM_RECORD_SHAPE:
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
+        del v, got, again, want
+    torch.cuda.empty_cache()
+    return record
+
+
+def _s_step_maxiter(method: str, s: int) -> int:
+    """The reference run's cap of about SPARSE_MAXITER matvecs: ca_cg
+    counts inner iterations at 2s − 1 matvecs an outer step of s, ca_gmres
+    cycles of s + 1 matvecs."""
+    if method == "ca_cg":
+        return SPARSE_MAXITER * s // (2 * s - 1)
+    return SPARSE_MAXITER // (s + 1)
+
+
+def phase_s_step_main(torch, cg_ms_per_iter: dict) -> dict:
+    """The s-step methods through ``api.solve``; the Gram, SpMV and Krylov
+    counters are set to 0 before and read after.  ``cg_ms_per_iter`` is
+    cg's time per iteration from phases 4 and 4c, printed beside."""
+    from repro_torch.core import api
+    from repro_torch.core.operator import DenseOperator
+    from repro_torch.kernels import krylov_fused, ops, spmv
+    from repro_torch.launch.solve import relative_residual
+    dense, b_dense = _systems(torch, N_MAIN)
+    sparse = {}
+
+    def system(name, grid, dtype):
+        if name != "poisson":
+            return dense[name], None, b_dense
+        if (grid, dtype) not in sparse:
+            sparse[(grid, dtype)] = _poisson_system(torch, grid, dtype, grid)
+        return sparse[(grid, dtype)]
+
+    def counts():
+        return {**krylov_fused.LAUNCHES, **spmv.LAUNCHES}
+
+    # first calls of the small dense factorizations (cuSOLVER set-up) out
+    # of the timed solves
+    for method in ("ca_cg", "ca_gmres"):
+        api.solve(dense["spd"][:64, :64], b_dense[:64], method=method, s=2)
+    krylov_fused.reset_launches()
+    spmv.reset_launches()
+    with _recorded_shapes(ops, "fused_gram") as gram_shapes:
+        for method, s, name, dtype, gated in S_STEP_MAIN_PATH:
+            grid = SPARSE_GRID if name == "poisson" else None
+            kw = dict(method=method, s=s, return_info=True)
+            if name == "poisson":
+                kw["maxiter"] = _s_step_maxiter(method, s)
+            a, a64, b = system(name, grid, dtype)
+            ref_res, ref_ms = _host_ms(torch, lambda: api.solve(
+                a, b, backend="ref", **kw))
+            moved = ""
+            if name == "poisson" and not bool(ref_res.converged):
+                moved = (f" (backend='ref' did not converge at {grid}³ "
+                         f"within maxiter={kw['maxiter']}: "
+                         f"{ref_res.iterations} iterations, "
+                         f"{ref_res.info['fail_reason']}; run at "
+                         f"{grid // 2}³)")
+                grid //= 2
+                a, a64, b = system(name, grid, dtype)
+                ref_res, ref_ms = _host_ms(torch, lambda: api.solve(
+                    a, b, backend="ref", **kw))
+            before = counts()
+            with _kernel_events(torch, DenseOperator, ("block_dots",)) as ev:
+                res, solve_ms = _host_ms(torch, lambda: api.solve(
+                    a, b, backend="cuda", **kw))
+            gram_ms = sum(st.elapsed_time(en) for st, en in ev)
+            rose = {k: counts()[k] - before[k] for k in before}
+            rel = relative_residual(a, b, res.x) if a64 is None \
+                else _relative_residual64(torch, a64, b, res.x)
+            it, ref_it = res.iterations, ref_res.iterations
+            unit = "cycle" if method == "ca_gmres" else "iter"
+            where = f"grid={grid}³ n={a.shape[0]}" if name == "poisson" \
+                else f"system={name} n={N_MAIN}"
+            label = f"{method} s={s} {where} {dtype}"
+            print(f"[s-step] {label}{moved}{'' if gated else ' (witness)'} "
+                  f"iterations={it} "
+                  f"ref_iterations={ref_it} "
+                  f"ref_converged={bool(ref_res.converged)} "
+                  f"converged={bool(res.converged)} "
+                  f"fail_reason={res.info['fail_reason']} "
+                  f"ref_fail_reason={ref_res.info['fail_reason']} "
+                  f"rel_residual={rel:.3e} solve_ms={solve_ms:.3f} "
+                  f"ref_solve_ms={ref_ms:.3f} "
+                  f"ms_per_{unit}={solve_ms / max(it, 1):.6f} "
+                  f"ref_ms_per_{unit}={ref_ms / max(ref_it, 1):.6f} "
+                  f"gram_calls={len(ev)} gram_ms={gram_ms:.3f} "
+                  f"gram_share={gram_ms / solve_ms:.4f} "
+                  f"cg_ms_per_iter={cg_ms_per_iter} launches={rose}")
+            check(res.x.shape == b.shape
+                  and bool(torch.isfinite(res.x).all()),
+                  f"{label}: x is not a finite vector of shape "
+                  f"{tuple(b.shape)}")
+            check(not gated or res.info["fail_reason"]
+                  == ref_res.info["fail_reason"],
+                  f"{label}: fail_reason {res.info['fail_reason']} vs "
+                  f"{ref_res.info['fail_reason']} on backend='ref'")
+            check(gated or rel <= WITNESS_RESIDUAL_LIMIT,
+                  f"{label}: the witness's residual {rel} > "
+                  f"{WITNESS_RESIDUAL_LIMIT}")
+            if gated and bool(ref_res.converged):
+                check(bool(res.converged),
+                      f"{label}: not converged ({res.info})")
+                check(rel <= RESIDUAL_LIMIT, f"{label}: residual {rel} > "
+                                             f"{RESIDUAL_LIMIT}")
+                check(it <= max(1.2 * ref_it, ref_it + 2),
+                      f"{label}: {it} iterations vs {ref_it} on "
+                      "backend='ref'")
+            if dtype == "float32":
+                check(rose["fused_gram"] > 0, f"{label}: fused_gram never "
+                                              "launched")
+            if name == "poisson":
+                check(rose["bsr_matvec"] > 0, f"{label}: bsr_matvec never "
+                                              "launched")
+    launches = counts()
+    print(f"[s-step] launches over the s-step main path: {launches}")
+    print(f"[s-step] the Gram kernel's (k, n) on the main path: "
+          f"{sorted(gram_shapes)}; held in phase 3e: {list(GRAM_SHAPES)}")
+    unchecked = gram_shapes - set(GRAM_SHAPES)
+    check(not unchecked, f"the main path gave the Gram kernel shapes that "
+                         f"phase 3e does not hold: {sorted(unchecked)}")
+    del dense, b_dense
+    sparse.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_cli(torch) -> None:
     from repro_torch.kernels import krylov_fused
     from repro_torch.launch import solve as cli
@@ -1230,6 +1488,18 @@ def phase_cli_ls(torch) -> None:
     print(f"[cli] --m {LS_M} --n {LS_N} --method qr returned 0")
 
 
+def phase_cli_s_step(torch) -> None:
+    from repro_torch.kernels import krylov_fused
+    from repro_torch.launch import solve as cli
+    before = krylov_fused.LAUNCHES["fused_gram"]
+    rc = cli.main(["--n", str(N_MAIN), "--method", "ca_cg", "--s", "4",
+                   "--backend", "cuda"])
+    check(rc == 0, f"CLI --method ca_cg --s 4 returned {rc}")
+    check(krylov_fused.LAUNCHES["fused_gram"] > before,
+          "CLI --method ca_cg launched no Gram kernel")
+    print("[cli] --method ca_cg --s 4 returned 0")
+
+
 def main() -> int:
     import torch
     import repro_torch  # noqa: F401  (without the package: fail before output)
@@ -1242,14 +1512,19 @@ def main() -> int:
     direct_rows = phase_direct_kernels(torch)
     sparse_row = phase_sparse_kernels(torch)
     ls_rows = phase_ls_kernels(torch)
-    launches = phase_main_path(torch)
+    gram_row = phase_gram_kernel(torch)
+    launches, cg_dense_ms = phase_main_path(torch)
     direct_launches, direct_ref_errors = phase_direct_main(torch)
-    sparse_launches = phase_sparse_main(torch, sparse_row["ms"])
+    sparse_launches, cg_sparse_ms = phase_sparse_main(torch,
+                                                      sparse_row["ms"])
     phase_bicgstab_witness(torch)
     ls_launches = phase_ls_main(torch, direct_ref_errors)
+    s_step_launches = phase_s_step_main(
+        torch, {"dense": cg_dense_ms, **cg_sparse_ms})
     phase_cli(torch)
     phase_cli_direct(torch)
     phase_cli_ls(torch)
+    phase_cli_s_step(torch)
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": meta["source"],
          "replaces": meta["replaces"], "launches": launches[name],
@@ -1268,7 +1543,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": meta["source"],
          "replaces": meta["replaces"], "launches": ls_launches[name],
          **ls_rows[name]}
-        for name, meta in LS_KERNEL_RECORD.items()]}
+        for name, meta in LS_KERNEL_RECORD.items()] + [
+        {"name": "fused_gram", "route": "cuda", **GRAM_RECORD,
+         "launches": s_step_launches["fused_gram"], **gram_row}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

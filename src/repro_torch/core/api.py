@@ -9,7 +9,8 @@ a registry of methods.
     >>> f = factorize(a, method="cholesky"); x = f(b)      # factor once
 
 Ported so far, on one device: the iterative methods (``cg``,
-``pipelined_cg``, ``bicg``, ``bicgstab``, ``gmres``) on a dense (n, n)
+``pipelined_cg``, ``bicg``, ``bicgstab``, ``gmres`` and the s-step
+``ca_cg`` / ``ca_gmres``, with ``s=``) on a dense (n, n)
 tensor or a sparse :class:`~repro_torch.sparse.formats.BSR` /
 :class:`~repro_torch.sparse.formats.ELL` matrix, the direct methods
 (``lu``, ``cholesky``, ``qr``) with :func:`factorize` on a dense one, and
@@ -104,6 +105,9 @@ register_method("bicg", krylov.bicg, requires=("matvec_t",))
 register_method("bicgstab", krylov.bicgstab)
 register_method("gmres", krylov.gmres, requires=("gram",),
                 extra=("restart",))
+register_method("ca_cg", krylov.ca_cg, requires=("gram",), extra=("s",))
+register_method("ca_gmres", krylov.ca_gmres, requires=("gram",),
+                extra=("s",))
 register_method("lsqr", krylov.lsqr, requires=("matvec_t",),
                 rectangular=True)
 register_method("cgls", krylov.cgls, requires=("matvec_t",),
@@ -248,8 +252,9 @@ def solve(a, b, *, method: str = "lu", mesh=None, engine: str = "gspmd",
     ``None``, ``"jacobi"``, ``"block_jacobi"`` (blocks of ``block_size``; a
     BSR's own bricks), ``"ssor"`` (BSR only), a
     :class:`~repro_torch.core.precond.Preconditioner`, or a callable
-    ``v -> M⁻¹ v``.  ``**method_kwargs``
-    forwards the options a method declares in its registry ``extra``.
+    ``v -> M⁻¹ v`` (the s-step methods take none).  ``**method_kwargs``
+    forwards the options a method declares in its registry ``extra``
+    (``s`` for ``ca_cg`` / ``ca_gmres``).
     """
     dev = _device.resolve(device)
     entry = get_method(method)

@@ -1,6 +1,6 @@
 """Non-stationary iterative solvers (port of :mod:`repro.core.krylov`): CG,
-pipelined CG, BiCG, BiCGSTAB and GMRES(m), and the least-squares CGLS and
-LSQR.
+pipelined CG, the s-step CA-CG and CA-GMRES, BiCG, BiCGSTAB and GMRES(m),
+and the least-squares CGLS and LSQR.
 
 Each solver is written once against the
 :class:`repro_torch.core.operator.LinearOperator` primitive set, and also
@@ -10,9 +10,11 @@ The reference runs ``lax.while_loop``, whose stop test stays on the device.
 Here the loop is a Python loop with the same test,
 ``sqrt(rr) > atol & ok(health) & k < maxiter``, evaluated once per
 iteration: one host synchronisation per iteration (per restart cycle for
-GMRES), which keeps the iteration counts equal to the reference's.  All
-other scalars (α, β, ⟨r,r⟩, the health record) stay on the device as 0-d
-tensors, so the fused update kernel reads α from device memory.
+GMRES, per outer step for CA-CG, per cycle for CA-GMRES), which keeps the
+iteration counts equal to the reference's.  All other scalars (α, β,
+⟨r,r⟩, the health record, the s-step methods' effective s and inner
+iteration count) stay on the device as 0-d tensors, so the fused update
+kernel reads α from device memory.
 
 Every solver carries a :mod:`repro_torch.resilience.monitor` health record
 and reports it as ``SolveResult.info['fail_code'/'fail_iter']``.
@@ -31,6 +33,7 @@ from repro_torch.resilience import monitor
 # norms; CGLS cuts off early on ‖Aᵀr‖², since the normal equations square
 # cond(A)
 _DIV_SQ = 1e8
+_DIV_CA_SQ = 1e4       # ca_cg on ⟨r,r⟩ (diverges hard at the f32 floor)
 _DIV_CGLS_SQ = 1e2
 _DIV_NORM = 1e6
 
@@ -143,6 +146,247 @@ def pipelined_cg(op: LinearOperator | Callable, b: torch.Tensor,
         gamma = gamma_new
         k += 1
     res = torch.sqrt(rr)
+    return SolveResult(x, k, res, res <= atol, monitor.info(h))
+
+
+# --------------------------------------------------------------------------
+# s-step (communication-avoiding) Krylov: CA-CG and CA-GMRES.  Per outer
+# step a matrix-powers sweep (matvecs only) builds a monomial basis, ONE
+# block_dots reduction forms its Gram matrix, and the iterations run on
+# coefficient vectors of length 2s+1 (CA-CG) or s+1 (CA-GMRES) whose inner
+# products are read out of the Gram matrix.  The monomial basis conditions
+# like cond(A)^s, hence the Gram-factor check and the shrink-s fallback.
+#
+# The reference unrolls the s inner steps with masks inside its while loop;
+# here the masks, the effective s and the inner-iteration count stay on the
+# device as 0-d tensors, so an outer step reads nothing back but the stop
+# test.  The shrink-s probes factor with cholesky_ex, which neither raises
+# nor synchronises on a block that is not positive definite, and test its
+# info as well as the factor's diagonal: jnp.linalg.cholesky NaNs such a
+# factor, cholesky_ex leaves a finite partial one.
+# --------------------------------------------------------------------------
+
+def _matrix_powers(op: LinearOperator, v: torch.Tensor, deg: int) -> list:
+    """[v, Av, …, A^deg v] — the matrix-powers sweep (matvecs only)."""
+    rows = [v]
+    for _ in range(deg):
+        rows.append(op.matvec(rows[-1]))
+    return rows
+
+
+def _no_ca_precond(precond, name):
+    if precond is not None:
+        raise ValueError(
+            f"{name} is unpreconditioned (M would have to enter the "
+            "matrix-powers basis as (MA)^k, changing the operator); use "
+            "method='pipelined_cg' or 'gmres' for preconditioned solves")
+
+
+def _factor_ok(sub: torch.Tensor, floor) -> torch.Tensor:
+    """Whether ``sub`` has a Cholesky factor whose pivots are finite and all
+    above ``floor``, as a 0-d bool tensor (no host read)."""
+    l, info = torch.linalg.cholesky_ex(sub)
+    dd = torch.diagonal(l)
+    return (info == 0) & torch.isfinite(dd).all() & (dd > floor).all()
+
+
+def _unit_scale(g: torch.Tensor):
+    """The symmetrized Gram matrix, the scale d = 1/sqrt(diag) (guarded
+    against a zero diagonal) and the unit-diagonal Gram matrix D g D."""
+    g = 0.5 * (g + g.T)
+    d = torch.rsqrt(torch.clamp_min(torch.diagonal(g),
+                                    torch.finfo(g.dtype).tiny))
+    return g, d, g * d[:, None] * d[None, :]
+
+
+def ca_cg(op: LinearOperator | Callable, b: torch.Tensor,
+          x0: torch.Tensor | None = None, *, tol: float = 1e-6,
+          maxiter: int = 1000, precond: Callable | None = None,
+          s: int = 4) -> SolveResult:
+    """s-step CG on the monomial basis: per OUTER step, 2s−1 matvecs build
+    [p, Ap, …, Aˢp, r, Ar, …, Aˢ⁻¹r], ONE ``block_dots`` reduction forms
+    the (2s+1)² Gram matrix, and s plain-CG iterations run on coefficient
+    vectors with every inner product read out of the Gram matrix.
+
+    Numerical breakdown (the monomial basis losing rank in finite
+    precision) is detected per outer step by Cholesky-factoring nested
+    leading Gram blocks; the step falls back to the largest s' ≤ s whose
+    factor is well-conditioned, and terminates if even s' = 1 fails.
+    ``maxiter`` counts CG iterations (inner steps), as in ``cg``.
+    """
+    _no_ca_precond(precond, "ca_cg")
+    if s < 1:
+        raise ValueError(f"ca_cg needs s >= 1, got s={s}")
+    op = as_operator(op)
+    x, atol = _setup(op, b, x0)
+    atol = tol * atol
+    nn = 2 * s + 1
+    dev, dt = b.device, b.dtype
+    sqrt_eps = torch.tensor(torch.finfo(dt).eps, dtype=dt, device=dev).sqrt()
+
+    # shift matrix: A·(basisᵀ c) = basisᵀ (B c).  Two independent
+    # sub-diagonals — one per power chain; the chains never mix.
+    bshift = torch.zeros((nn, nn), dtype=dt, device=dev)
+    j = torch.arange(s, device=dev)
+    bshift[j + 1, j] = 1
+    if s > 1:
+        j = torch.arange(s + 1, nn - 1, device=dev)
+        bshift[j + 1, j] = 1
+
+    r = b - op.matvec(x)
+    rr = op.dot(r, r)
+    p = r
+    h = monitor.init(rr)
+    xb, rrb = x, rr
+    k = torch.zeros((), dtype=torch.int32, device=dev)
+    # the stop test, read back once per outer step
+    while bool((torch.sqrt(torch.clamp_min(rr, 0)) > atol) & monitor.ok(h)
+               & (k < maxiter)):
+        rows = _matrix_powers(op, p, s) + _matrix_powers(op, r, s - 1)
+        basis = torch.stack(rows)                   # (2s+1, n) row-stack
+        g, d, gs = _unit_scale(op.block_dots(basis))  # ONE reduction
+        # the basis rescaled to unit norm, free in coefficient space: it
+        # folds into the Gram (D g D), the shift matrix (D⁻¹ B D) and the
+        # seed / readout coefficients
+        bs = bshift * (d[None, :] / d[:, None])
+
+        # breakdown fallback: the largest s' for which both power chains
+        # keep numerical rank — each basis vector keeps > sqrt(eps) of its
+        # norm after orthogonalization against its own chain
+        s_eff = torch.zeros((), dtype=torch.int32, device=dev)
+        for cand in range(1, s + 1):
+            ok = torch.ones((), dtype=torch.bool, device=dev)
+            for lo, size in ((0, cand + 1), (s + 1, cand)):
+                sub = g[lo:lo + size, lo:lo + size]
+                ok = ok & _factor_ok(
+                    sub, sqrt_eps * torch.sqrt(torch.diagonal(sub)))
+            s_eff = torch.where(ok, cand, s_eff).to(torch.int32)
+
+        # s CG steps on the scaled coefficient vectors; a masked step
+        # carries its state unchanged.  Seeds carry 1/d.
+        pc = torch.zeros(nn, dtype=dt, device=dev)
+        pc[0] = 1 / d[0]
+        rc = torch.zeros(nn, dtype=dt, device=dev)
+        rc[s + 1] = 1 / d[s + 1]
+        xc = torch.zeros(nn, dtype=dt, device=dev)
+        rr = g[s + 1, s + 1]                        # fresh ⟨r,r⟩ from Gram
+        kk = k
+        for j in range(s):
+            active = (s_eff > j) & (rr > 0)
+            w = bs @ pc                             # coeffs of A p
+            alpha = _safe_div(rr, pc @ (gs @ w))
+            xc_n = xc + alpha * pc
+            rc_n = rc - alpha * w
+            rr_n = torch.clamp_min(rc_n @ (gs @ rc_n), 0)
+            beta = _safe_div(rr_n, rr)
+            pc_n = rc_n + beta * pc
+            xc = torch.where(active, xc_n, xc)
+            rc = torch.where(active, rc_n, rc)
+            pc = torch.where(active, pc_n, pc)
+            rr = torch.where(active, rr_n, rr)
+            kk = kk + active.to(torch.int32)
+
+        # coefficients back to vectors (un-scaled with d)
+        x = x + (xc * d) @ basis
+        r = (rc * d) @ basis
+        p = (pc * d) @ basis
+        # at the attainable accuracy of the working precision the s-step
+        # recurrence diverges rather than stalls: keep the best iterate;
+        # the monitor classifies the blow-up (_DIV_CA_SQ past the best
+        # ⟨r,r⟩) and a basis with no rank left (s_eff = 0)
+        better = rr < rrb
+        xb = torch.where(better, x, xb)
+        rrb = torch.where(better, rr, rrb)
+        brk = (s_eff == 0) & (torch.sqrt(torch.clamp_min(rr, 0)) > atol)
+        h = monitor.update(h, rr, kk, breakdown=brk, divergence=_DIV_CA_SQ)
+        k = kk
+    res = torch.sqrt(torch.clamp_min(rrb, 0))
+    return SolveResult(xb, int(k), res, res <= atol, monitor.info(h))
+
+
+def ca_gmres(op: LinearOperator | Callable, b: torch.Tensor,
+             x0: torch.Tensor | None = None, *, tol: float = 1e-6,
+             maxiter: int = 100, precond: Callable | None = None,
+             s: int = 8) -> SolveResult:
+    """s-step GMRES: per cycle, a matrix-powers sweep builds the s+1
+    monomial basis vectors (matvecs only), then ONE ``block_dots``
+    reduction feeds CholeskyQR, in place of the ~2s synchronizations of
+    Arnoldi's Gram-Schmidt.  The Hessenberg projection comes from the shift
+    identity A·K[:s] = K[1:] as H = R[:,1:] R[:s,:s]⁻¹, and the cycle's
+    least-squares residual is read off locally.  A prefix condition mask on
+    the Cholesky factor truncates the cycle to the numerically independent
+    basis columns (the shrink-s fallback).  ``maxiter`` counts cycles.
+
+    Each cycle reads the stop test back once; the small least-squares
+    solve (:func:`_lstsq`, an SVD) synchronizes on CUDA as well."""
+    _no_ca_precond(precond, "ca_gmres")
+    if s < 1:
+        raise ValueError(f"ca_gmres needs s >= 1, got s={s}")
+    op = as_operator(op)
+    x, atol = _setup(op, b, x0)
+    atol = tol * atol
+    dev, dt = b.device, b.dtype
+    sqrt_eps = torch.tensor(torch.finfo(dt).eps, dtype=dt, device=dev).sqrt()
+    eye = torch.eye(s + 1, dtype=dt, device=dev)
+    nan = torch.tensor(float("nan"), dtype=dt, device=dev)
+    idx = torch.arange(s + 1, device=dev)
+
+    def cycle(x):
+        r = b - op.matvec(x)
+        kmat = torch.stack(_matrix_powers(op, r, s))  # (s+1, n) row-stack
+        g, d, gs = _unit_scale(op.block_dots(kmat))    # ONE reduction
+        # shrink-s fallback on the unit-diagonal Gram: basis vector i
+        # survives iff it keeps > sqrt(eps) of its norm after
+        # orthogonalization against its predecessors
+        s_eff = torch.zeros((), dtype=torch.int32, device=dev)
+        for cand in range(1, s + 1):
+            ok = _factor_ok(gs[:cand + 1, :cand + 1], sqrt_eps)
+            s_eff = torch.where(ok, cand, s_eff).to(torch.int32)
+        msk = ((idx <= s_eff) & (g[0, 0] > 0)).to(dt)
+        g_safe = torch.where(torch.outer(msk, msk) > 0, gs, eye)
+        # positive definite by construction; a non-finite Gram fails, and
+        # then the factor is NaN, as jnp.linalg.cholesky returns it
+        l, info = torch.linalg.cholesky_ex(g_safe)
+        l = torch.where(info == 0, l, nan)
+        # CholeskyQR of the scaled basis Ks = diag(d)·K: the rows of
+        # Q̃ = L⁻¹·Ks are orthonormal, Ksᵀ = Q̃ᵀ·rc with rc = Lᵀ
+        # upper-triangular.  Only y·Q̃[:s] is used, so the triangular solve
+        # runs on the (s+1)² matrix L⁻¹·diag(d) and one product with K
+        # makes the update (the reference solves against the (s+1, n) Ks;
+        # on the card a solve with n right-hand sides is far slower)
+        ld = torch.linalg.solve_triangular(l, torch.diag(d), upper=False)
+        rc = l.T
+        # shift identity on the scaled basis: A·Ks[j] = (d[j]/d[j+1])
+        # Ks[j+1].  A basis vector whose norm² overflowed has d = 0 and an
+        # inf ratio: zero it (its columns are masked) before the product
+        ratio = d[:s] / d[1:]
+        ratio = torch.where(torch.isfinite(ratio), ratio, 0)
+        rinv, _ = torch.linalg.inv_ex(rc[:s, :s])
+        hmat = (rc[:, 1:] * ratio[None, :]) @ rinv   # (s+1, s) Hessenberg
+        mask2d = (torch.outer(msk, msk[1:]) > 0) & torch.isfinite(hmat)
+        hmat = torch.where(mask2d, hmat, 0)          # where, not *: 0·inf
+        # r's coordinates in the Q̃ basis: r = Ks[0]/d[0] = Q̃ᵀrc[:,0]/d[0]
+        c = torch.where(msk[0] > 0, rc[:, 0] / d[0], torch.zeros_like(d))
+        y = _lstsq(hmat, c)
+        y = torch.where(torch.isfinite(y), y, 0)
+        res = torch.linalg.norm(c - hmat @ y)
+        return x + (y @ ld[:s]) @ kmat, res, s_eff >= 1
+
+    res = op.norm(b - op.matvec(x))
+    h = monitor.init(res)
+    k = 0
+    while k < maxiter and _running(res, atol, h, sq=False):
+        x2, res2, ok = cycle(x)
+        # a cycle that does not strictly improve the least-squares residual
+        # (stagnation, or NaNs past every mask) is discarded and ends the
+        # iteration; the monitor classifies it (a non-finite residual, a
+        # basis with no independent column, or stagnation with window 1)
+        better = torch.isfinite(res2) & (res2 < res)
+        h = monitor.update(h, res2, k + 1, breakdown=(~ok) & (res > atol),
+                           stagnation=1)
+        x = torch.where(better, x2, x)
+        res = torch.where(better, res2, res)
+        k += 1
     return SolveResult(x, k, res, res <= atol, monitor.info(h))
 
 

@@ -8,11 +8,13 @@ against the primitive set
 * ``update`` — the fused x += αp; r −= αAp; ⟨r,r⟩ pass,
 * ``axpy_pair`` — least squares' paired (x + αp, r − αq),
 * ``pipelined_dots`` — pipelined CG's single fused reduction,
+* ``block_dots`` — the Gram matrix of a (k, n) row-stack in one reduction
+  (the s-step methods' one reduction per outer step),
 * ``scale`` / ``norm`` — helpers.
 
-:class:`DenseOperator` with ``backend="cuda"`` sends ``update`` and
-``pipelined_dots`` of float32 vectors, and ``axpy_pair`` when both pairs
-have one shape, through the hand-written kernels of
+:class:`DenseOperator` with ``backend="cuda"`` sends ``update``,
+``pipelined_dots`` and ``block_dots`` of float32 vectors, and ``axpy_pair``
+when both pairs have one shape, through the hand-written kernels of
 :mod:`repro_torch.kernels.krylov_fused`.  Its matvecs are plain products,
 as in the reference, where they were left to XLA.  The sparse engine
 (:mod:`repro_torch.sparse.operator`) subclasses it and sends its matvecs
@@ -50,6 +52,12 @@ class LinearOperator:
         """Stacked dots ``m @ w`` for a (k, n) row-stack m (GMRES Gram)."""
         raise NotImplementedError
 
+    def block_dots(self, vs: torch.Tensor) -> torch.Tensor:
+        """Gram matrix G = V Vᴴ of a (k, n) row-stack — all k² basis inner
+        products in one reduction, in place of the ~2s dot products of s
+        classical Krylov iterations."""
+        return vs.conj() @ vs.T
+
     def norm(self, v: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(self.dot(v, v))
 
@@ -75,9 +83,10 @@ class LinearOperator:
 
 
 class DenseOperator(LinearOperator):
-    """A dense matrix on one device.  ``backend="cuda"`` fuses the update and
-    the pipelined reduction into single passes (float32 only; other dtypes
-    use the plain path, see :func:`blocking.effective_backend`)."""
+    """A dense matrix on one device.  ``backend="cuda"`` fuses the update,
+    the pipelined reduction and the Gram matrix into single passes (float32
+    only; other dtypes use the plain path, see
+    :func:`blocking.effective_backend`)."""
 
     has_transpose = True
 
@@ -123,6 +132,11 @@ class DenseOperator(LinearOperator):
         if self._fusable(r):
             return ops.fused_pipelined_dots(r, u, w)
         return super().pipelined_dots(r, u, w)
+
+    def block_dots(self, vs):
+        if self._fusable(vs):
+            return ops.fused_gram(vs)
+        return super().block_dots(vs)
 
     def axpy_pair(self, x, p, r, q, alpha):
         # one fused pass when both pairs share a shape (square systems);

@@ -1,9 +1,11 @@
 """Fused Krylov vector kernels: wrappers of ``csrc/krylov_fused.cu``.
 
-Port of :mod:`repro.kernels.krylov_fused`'s ``fused_cg_update`` and
-``fused_pipelined_dots`` (their ``_auto`` forms: any ``n``).  A CG step's
-x += αp; r −= αAp; ⟨r,r⟩ is one pass over four vectors in place of three
-separate passes, and pipelined CG's three inner products share one read.
+Port of :mod:`repro.kernels.krylov_fused`'s ``fused_cg_update``,
+``fused_pipelined_dots`` and ``fused_gram`` (their ``_auto`` forms: any
+``n``, and any ``k`` for the Gram matrix).  A CG step's x += αp; r −= αAp;
+⟨r,r⟩ is one pass over four vectors in place of three separate passes,
+pipelined CG's three inner products share one read, and the s-step
+methods' Gram matrix V·Vᵀ of a (k, n) row-stack is one read of V.
 
 Dispatch is by the tensors' device and nothing else: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain version in
@@ -19,7 +21,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES = {"fused_cg_update": 0, "fused_pipelined_dots": 0}
+LAUNCHES = {"fused_cg_update": 0, "fused_pipelined_dots": 0,
+            "fused_gram": 0}
 
 _LIB_NAME = "krylov_fused"
 _P = ctypes.c_void_p
@@ -39,6 +42,11 @@ def _lib() -> ctypes.CDLL:
         lib.krylov_fused_pipelined_dots.argtypes = [_P] * 5 + [
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P]
         lib.krylov_fused_pipelined_dots.restype = ctypes.c_int
+        lib.krylov_fused_gram.argtypes = [_P] * 3 + [
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P]
+        lib.krylov_fused_gram.restype = ctypes.c_int
+        lib.krylov_gram_blocks.argtypes = [ctypes.c_int, ctypes.c_int64]
+        lib.krylov_gram_blocks.restype = ctypes.c_int
         lib.krylov_error_string.argtypes = [ctypes.c_int]
         lib.krylov_error_string.restype = ctypes.c_char_p
         for fn in ("krylov_threads", "krylov_max_blocks"):
@@ -120,3 +128,32 @@ def fused_pipelined_dots(r: torch.Tensor, u: torch.Tensor, w: torch.Tensor):
     _build.raise_on(err, lib.krylov_error_string, "fused_pipelined_dots")
     LAUNCHES["fused_pipelined_dots"] += 1
     return out[0], out[1], out[2]
+
+
+def fused_gram(v: torch.Tensor) -> torch.Tensor:
+    """G = V·Vᵀ of a contiguous (k, n) float32 row-stack in one read of V,
+    as a (k, k) float32 tensor on V's device (exactly symmetric on CUDA)."""
+    if not isinstance(v, torch.Tensor):
+        raise TypeError(f"v must be a tensor, got {type(v)}")
+    if v.dtype != torch.float32:
+        raise TypeError(f"v must be float32, got {v.dtype}")
+    if v.ndim != 2 or v.shape[0] == 0 or v.shape[1] == 0:
+        raise ValueError(f"v must be a nonempty (k, n) row-stack; got shape "
+                         f"{tuple(v.shape)}")
+    if not v.is_contiguous():
+        raise ValueError("v must be contiguous")
+    if not _build.on_cuda(v):
+        return _ref.fused_gram(v)
+    lib = _lib()
+    k, n = v.shape
+    blocks = lib.krylov_gram_blocks(k, n)
+    partials = torch.empty(blocks * k * k, dtype=torch.float32,
+                           device=v.device)
+    g = torch.empty((k, k), dtype=torch.float32, device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    err = lib.krylov_fused_gram(v.data_ptr(), partials.data_ptr(),
+                                g.data_ptr(), k, n, blocks, v.device.index,
+                                stream)
+    _build.raise_on(err, lib.krylov_error_string, "fused_gram")
+    LAUNCHES["fused_gram"] += 1
+    return g

@@ -30,6 +30,11 @@ def fused_pipelined_dots(r, u, w, *, use_kernel: bool = True):
     return _krylov_fused.fused_pipelined_dots(r, u, w)
 
 
+def fused_gram(v):
+    """The (k, k) Gram matrix V·Vᵀ; see :func:`krylov_fused.fused_gram`."""
+    return _krylov_fused.fused_gram(v)
+
+
 def lu_panel_update(a, linv, k: int, *, nb: int):
     """In place on ``a``; see :func:`factor_fused.lu_panel_update`."""
     return _factor_fused.lu_panel_update(a, linv, k, nb=nb)

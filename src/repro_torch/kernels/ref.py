@@ -27,6 +27,14 @@ def fused_pipelined_dots(r: torch.Tensor, u: torch.Tensor, w: torch.Tensor):
     return torch.dot(rf, uf), torch.dot(wf, uf), torch.dot(rf, rf)
 
 
+def fused_gram(v: torch.Tensor) -> torch.Tensor:
+    """The (k, k) Gram matrix G = V Vᵀ of a (k, n) row-stack, accumulated
+    in float32 and returned in ``v``'s dtype, as the reference's
+    ``fused_gram_auto`` returns it."""
+    vf = v.to(torch.float32)
+    return (vf @ vf.T).to(v.dtype)
+
+
 def lu_panel_update(a: torch.Tensor, linv: torch.Tensor, k: int, *,
                     nb: int) -> torch.Tensor:
     """One LU step on the (n, n) working matrix, in place: U12 = L11⁻¹·A12

@@ -5,7 +5,8 @@ ported methods.
         --backend cuda
 
 Draws the same synthetic dense system as the reference CLI (numpy,
-seed 0): SPD ``a @ a.T / n + 4I`` for cholesky and the CG family,
+seed 0): SPD ``a @ a.T / n + 4I`` for cholesky and the CG family (ca_cg
+included; ``--s`` sets the s-step methods' basis size),
 diagonally dominant ``a + nI`` otherwise, and with ``--m`` other than
 ``--n`` a Gaussian (m, n) least-squares system (methods qr, lsqr, cgls).
 The SPD product is formed on the device (on the host it would take minutes
@@ -27,9 +28,9 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import api
 
-METHODS = ("lu", "cholesky", "qr", "cg", "pipelined_cg", "bicg", "bicgstab",
-           "gmres", "lsqr", "cgls")
-SPD_METHODS = ("cholesky", "cg", "pipelined_cg")
+METHODS = ("lu", "cholesky", "qr", "cg", "pipelined_cg", "ca_cg", "ca_gmres",
+           "bicg", "bicgstab", "gmres", "lsqr", "cgls")
+SPD_METHODS = ("cholesky", "cg", "pipelined_cg", "ca_cg")
 
 
 def make_system(n: int, *, spd: bool, m: int | None = None,
@@ -77,6 +78,10 @@ def main(argv=None) -> int:
                     help="rows; m > n makes the system rectangular least "
                          "squares (methods qr/lsqr/cgls)")
     ap.add_argument("--method", default="lu", choices=METHODS)
+    ap.add_argument("--s", type=int, default=2,
+                    help="s-step basis size for ca_cg/ca_gmres (the "
+                         "monomial basis conditions like kappa^s: keep "
+                         "s small in float32, raise under --dtype float64)")
     ap.add_argument("--backend", default="ref", choices=["ref", "cuda"])
     ap.add_argument("--precond", default=None,
                     choices=[None, "jacobi", "block_jacobi"])
@@ -89,11 +94,12 @@ def main(argv=None) -> int:
 
     a, b = make_system(args.n, spd=args.method in SPD_METHODS, m=args.m,
                        dtype=np.dtype(args.dtype), device=args.device)
+    extra = {"s": args.s} if args.method.startswith("ca_") else {}
     t0 = time.perf_counter()
     res = api.solve(a, b, method=args.method, backend=args.backend,
                     tol=args.tol, maxiter=args.maxiter,
                     precond=args.precond, return_info=True,
-                    device=args.device)
+                    device=args.device, **extra)
     if a.device.type == "cuda":
         torch.cuda.synchronize(a.device)
     dt = time.perf_counter() - t0

@@ -4,12 +4,12 @@
 :class:`SparseOperator` implements the full ``LinearOperator`` primitive
 set over a :class:`~repro_torch.sparse.formats.BSR` or
 :class:`~repro_torch.sparse.formats.ELL` matrix, so every registered
-Krylov method (cg, pipelined_cg, bicg, bicgstab, gmres) runs on a sparse A
-unchanged.  ``backend="cuda"`` sends every matvec through the hand-written
-BSR SpMV kernel (:mod:`repro_torch.kernels.spmv`), float32 and float64
-alike — the SpMV keeps float64, unlike the Krylov vector kernels — and
-inherits the dense engine's fused update and pipelined-reduction kernels
-(float32 only).
+Krylov method (cg, pipelined_cg, bicg, bicgstab, gmres, ca_cg, ca_gmres)
+runs on a sparse A unchanged.  ``backend="cuda"`` sends every matvec
+through the hand-written BSR SpMV kernel (:mod:`repro_torch.kernels.spmv`),
+float32 and float64 alike — the SpMV keeps float64, unlike the Krylov
+vector kernels — and inherits the dense engine's fused update,
+pipelined-reduction and Gram kernels (float32 only).
 
 The reference's block-row-sharded ``SparseSpmdLocalOperator`` and
 ``spmd_solve`` are not ported yet (the distributed slice of the port).

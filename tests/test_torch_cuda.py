@@ -498,3 +498,155 @@ def test_sparse_solve_goes_through_the_spmv_kernel(cuda_device, method):
     bt = torch.from_numpy(b).to(cuda_device).double()
     assert float(torch.linalg.norm(bt - a64.matvec(x64))
                  / torch.linalg.norm(bt)) <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# kernel 3: the fused Gram matrix and the s-step path
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 16514, 1 << 21])
+@pytest.mark.parametrize("k", [1, 5, 9, 17, 33])
+def test_gram_kernel_matches_plain_version(cuda_device, k, n):
+    """G = V Vᵀ against the plain product at rtol 1e-5, atol 1e-5·max|G|
+    (the reference's Gram test tolerance, scaled to G), exactly
+    symmetric, bitwise-repeatable, one launch per call."""
+    g = torch.Generator(device=cuda_device).manual_seed(k * 7 + n)
+    v = torch.randn(k, n, generator=g, device=cuda_device)
+    before = krylov_fused.LAUNCHES["fused_gram"]
+    got = krylov_fused.fused_gram(v)
+    assert torch.equal(got, krylov_fused.fused_gram(v))
+    assert krylov_fused.LAUNCHES["fused_gram"] == before + 2
+    assert got.shape == (k, k) and got.dtype == torch.float32
+    assert got.device == v.device and torch.equal(got, got.T)
+    want = ref.fused_gram(v)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_gram_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    v = torch.ones(5, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        krylov_fused.fused_gram(v.double())
+    with pytest.raises(TypeError, match="float32"):
+        krylov_fused.fused_gram(v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        krylov_fused.fused_gram(v.T)
+    with pytest.raises(ValueError, match="contiguous"):
+        krylov_fused.fused_gram(v[:, ::2])
+    with pytest.raises(ValueError, match="row-stack"):
+        krylov_fused.fused_gram(v[0])
+
+
+def _s_step_systems(dev):
+    """The dense SPD ``a aᵀ/n + 4I`` and ``a + nI`` at n = 4096 and the
+    Poisson BSR on a 32³ grid (nb = 32), each with a Gaussian b."""
+    rng = np.random.default_rng(5)
+    n = 4096
+    a = rng.standard_normal((n, n))
+    b = rng.standard_normal(n).astype(np.float32)
+    spd = (a @ a.T / n + 4.0 * np.eye(n)).astype(np.float32)
+    dominant = (a + n * np.eye(n)).astype(np.float32)
+    poisson = problems.poisson_3d_bsr(32, 32, device=dev)
+    bp = rng.standard_normal(poisson.shape[0]).astype(np.float32)
+    return {"spd": (spd, b), "dominant": (dominant, b),
+            "poisson": (poisson, bp)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,s,system", [
+    ("ca_cg", 2, "spd"), ("ca_gmres", 4, "dominant"),
+    ("ca_gmres", 8, "dominant"), ("ca_cg", 2, "poisson"),
+    ("ca_gmres", 4, "poisson")])
+def test_s_step_solve_goes_through_the_gram_kernel(cuda_device, method, s,
+                                                   system):
+    """``backend="cuda"`` against ``"ref"`` on the card: the same
+    ``fail_reason``; where the reference converged, converged with
+    iterations within max(1.2×, +2) and a true relative residual ≤ 1e-4
+    (float64); the Gram kernel (and on the BSR the SpMV kernel)
+    launched."""
+    a, b = _s_step_systems(cuda_device)[system]
+    kw = dict(method=method, s=s, return_info=True)
+    ref_res = api.solve(a, b, **kw)
+    before = (krylov_fused.LAUNCHES["fused_gram"], spmv.LAUNCHES["bsr_matvec"])
+    res = api.solve(a, b, backend="cuda", **kw)
+    assert krylov_fused.LAUNCHES["fused_gram"] > before[0]
+    if system == "poisson":
+        assert spmv.LAUNCHES["bsr_matvec"] > before[1]
+    assert res.info["fail_reason"] == ref_res.info["fail_reason"]
+    if bool(ref_res.converged):
+        assert bool(res.converged)
+        assert res.iterations <= max(1.2 * ref_res.iterations,
+                                     ref_res.iterations + 2)
+        bt = torch.from_numpy(b).to(cuda_device).double()
+        x64 = res.x.double()
+        if system == "poisson":
+            a64 = BSR(a.data.double(), a.indices, a.indptr, a.shape, a.nb,
+                      device=cuda_device)
+            r = bt - a64.matvec(x64)
+        else:
+            r = bt - torch.from_numpy(a).to(cuda_device).double() @ x64
+        assert float(torch.linalg.norm(r) / torch.linalg.norm(bt)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_float32_ca_cg_s4_on_the_dense_spd_system_runs_through_the_kernel(
+        cuda_device):
+    """float32 ca_cg at s = 4 on the n = 4096 SPD system: its iteration
+    count and stop are decided by the Gram matrix's rounding in both
+    packages (ROADMAP §3; the test below shows it with three Gram
+    computations), so the two backends are not held to each other here;
+    the kernel runs and x stays finite."""
+    a, b = _s_step_systems(cuda_device)["spd"]
+    before = krylov_fused.LAUNCHES["fused_gram"]
+    res = api.solve(a, b, method="ca_cg", s=4, backend="cuda",
+                    return_info=True)
+    assert krylov_fused.LAUNCHES["fused_gram"] > before
+    assert torch.isfinite(res.x).all() and torch.isfinite(res.residual)
+
+
+@pytest.mark.cuda
+def test_float32_ca_cg_s4_stop_moves_with_the_gram_rounding(cuda_device,
+                                                             capsys):
+    """float32 ca_cg at s = 4 on the n = 16384 SPD system ``a aᵀ/n + 4I``
+    of ``chip_smoke.py`` for four Gaussian b, each solved with three Gram
+    computations: the plain float32 product (cuBLAS), kernel 3, and the
+    float64 product rounded to float32.  Prints each run's iterations,
+    stop and true residual (run with ``-s``): the stop moves with the
+    Gram's rounding (ROADMAP §3).  Every x is finite, and kernel 3's best
+    iterate has a true relative residual ≤ 1e-2."""
+    from repro_torch import device as _device
+    from repro_torch.core import krylov
+    from repro_torch.core.operator import DenseOperator
+    from repro_torch.launch.solve import relative_residual
+    from repro_torch.resilience import monitor
+    n = 16384
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(n, n, generator=g, device=cuda_device)
+    a = a @ a.T / n + 4.0 * torch.eye(n, device=cuda_device)
+    grams = {"plain_float32": lambda v: v @ v.T,
+             "kernel3": krylov_fused.fused_gram,
+             "float64_rounded": lambda v: (v.double() @ v.double().T)
+             .float()}
+    for seed in (1, 2, 3, 4):
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        b = torch.randn(n, generator=g, device=cuda_device)
+        cells, kernel_rel = [], None
+        for name, gram in grams.items():
+            op = DenseOperator(a)
+            op.block_dots = gram
+            with _device.full_fp32():
+                res = krylov.ca_cg(op, b, s=4)
+            assert torch.isfinite(res.x).all(), (name, seed)
+            rel = relative_residual(a, b, res.x)
+            if name == "kernel3":
+                kernel_rel = rel
+            cells.append(f"{name}: iterations={res.iterations} fail_reason="
+                         f"{monitor.classify(res.info['fail_code'])} "
+                         f"converged={bool(res.converged)} "
+                         f"rel_residual={rel:.3e}")
+        with capsys.disabled():
+            print(f"[s-step-witness] ca_cg s=4 spd n={n} float32 "
+                  f"seed={seed} " + " | ".join(cells))
+        assert kernel_rel <= 1e-2, (seed, kernel_rel)

@@ -74,7 +74,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     for g, w in zip(dots, ref.fused_pipelined_dots(x, r, p)):
         assert torch.equal(g, w)
     assert krylov_fused.LAUNCHES == {"fused_cg_update": 0,
-                                     "fused_pipelined_dots": 0}
+                                     "fused_pipelined_dots": 0,
+                                     "fused_gram": 0}
 
 
 @pytest.mark.parametrize("bad,err", [

@@ -110,6 +110,39 @@ Phases, each printing its own lines; any failure exits non-zero:
    stop there is decided by the Gram's rounding in both packages, so it
    is not held to the reference, but its best iterate's true relative
    residual is held to 1e-2;
+3f. attention kernel (kernel 10), at the serving path's shapes (qwen3-1.7b:
+   B = 4, 16 / 8 heads, D = 128, causal, T = 1920 and 2048, bf16 and the
+   float32 copy's float32, and T = 32768 at B = 1) and the other configs'
+   (tinyllama's group of 8 at D = 64, hymba's window of 1024 at T = 4096,
+   the decode offset Tq = 128 against Tk = 2048, kimi's D = 112 float32
+   non-causal), against its plain version: float32 rtol = atol = 1e-4;
+   bf16 element by element |Δ| ≤ 2⁻⁸ · |o| + 1e-5 (one bf16 rounding of
+   each output plus float32 slack) against the plain version computed in
+   float32 from the same bf16 inputs; where
+   the plain version's float32 scores would pass 16 GB (T = 32768) on the
+   first 256 rows against the first 256 keys and the last 256 rows against
+   all keys, both exact sub-problems; bitwise-repeatable; timed beside the
+   plain version, ``scaled_dot_product_attention`` (``is_causal`` where
+   Tq = Tk, else an explicit end-aligned mask) and its bound max(bytes ÷
+   3.35 TB/s, 4·D flops a visible pair and head ÷ 989 TFLOP/s bf16 or 67
+   TFLOP/s float32), with the float32-pipe (67 TFLOP/s) share beside it;
+4h. serving path: qwen3-1.7b at full width and depth (28 layers, 1.72 B
+   parameters, bf16), random weights from a seeded generator on the card;
+   4 requests of 1920 prompt tokens prefilled into a 2048-slot cache, 128
+   greedy ``decode_step``s, ``forward`` over the 2048 tokens, whose logits
+   at positions 1920–2047 must match the decode steps' within 5e-2 ·
+   max|logit| (the JAX package's bar); the prefill's last-token logits
+   with the kernel against ``force_kernel(False)`` (dense attention) within
+   5e-2 · max|logit|; a 32768-token ``forward(last_only=True)``; then the
+   same serve on a float32 copy of the model in full float32, where decode
+   must match forward within 1e-3 · max|logit|.  The kernel's counter is
+   set to 0 before each drive and must read 28 after each prefill and
+   forward, 0 after the decode steps and the plain prefill; every shape
+   the kernel gets must be one phase 3f held.  Prefill tokens/s, decode
+   ms a token beside the weights' floor (bytes ÷ 3.35 TB/s), the kernel's
+   share of each prefill (CUDA events), peak memory, and one more decode
+   step and prefill under ``torch.profiler``: the host's operator count
+   and the device's busy time in each;
 5. CLI: ``repro_torch.launch.solve.main`` at n = 16384 with cg, with lu and
    with ``--method ca_cg --s 4`` on the kernels, and at ``--m 32768 --n
    8192`` with qr.
@@ -259,6 +292,41 @@ GRAM_OFF_PATH_K = 17
 GRAM_RECORD_SHAPE = (9, SPARSE_GRID ** 3)   # ca_cg s = 4 on the 128³ BSR
 GRAM_RECORD = {"source": "src/repro_torch/kernels/csrc/krylov_fused.cu",
                "replaces": "src/repro/kernels/krylov_fused.py:240"}
+BF16_FLOPS_PER_S = 989e12            # H100 SXM bf16, dense tensor cores
+SERVE_ARCH = "qwen3-1.7b"            # full width and depth
+SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE = 4, 1920, 2048   # 15 × 128 prompt
+SERVE_DECODE = SERVE_CACHE - SERVE_PROMPT                # greedy tokens
+LONG_PREFILL = 32768                 # prefill_32k's length, batch 32 → 1
+SERVE_SEED = 18
+LAYER_LAUNCHES = 28                  # one kernel launch a layer a prefill
+BF16_LOGIT_TOL = 5e-2                # of max|logit|: tests/test_models.py
+F32_LOGIT_TOL = 1e-3                 # of max|logit|, the float32 copy
+# kernel 10's shapes: (label, B, Hq, Hkv, Tq, Tk, D, causal, window,
+# dtype); the serving phase 4h fails on a call whose shape is not here
+ATTENTION_CASES = (
+    ("qwen3 prefill", 4, 16, 8, 2048, 2048, 128, True, None, "bfloat16"),
+    ("qwen3 serve prefill", 4, 16, 8, 1920, 1920, 128, True, None,
+     "bfloat16"),
+    ("qwen3 float32 copy", 4, 16, 8, 2048, 2048, 128, True, None,
+     "float32"),
+    ("qwen3 float32 copy prefill", 4, 16, 8, 1920, 1920, 128, True, None,
+     "float32"),
+    ("tinyllama (group 8)", 4, 32, 4, 2048, 2048, 64, True, None,
+     "bfloat16"),
+    ("hymba window", 1, 25, 5, 4096, 4096, 64, True, 1024, "bfloat16"),
+    ("decode offset", 1, 16, 8, 128, 2048, 128, True, None, "bfloat16"),
+    ("float32 case", 2, 8, 2, 512, 512, 112, False, None, "float32"),
+    ("long prefill", 1, 16, 8, LONG_PREFILL, LONG_PREFILL, 128, True, None,
+     "bfloat16"),
+)
+ATTENTION_RECORD_CASE = "qwen3 prefill"
+ATTENTION_ROWS = 256                 # the plain version's rows at T = 32768
+ATTENTION_PLAIN_BYTES = 16e9         # largest float32 score tensor held
+# one rounding of a float32 result to the output type, and float32 slack
+ATTENTION_ROUNDING = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+ATTENTION_F32_SLACK = 1e-5
+ATTENTION_RECORD = {"source": "src/repro_torch/kernels/csrc/attention.cu",
+                    "replaces": "src/repro/kernels/attention.py:110"}
 
 
 class SmokeFailure(Exception):
@@ -306,7 +374,7 @@ def phase_card(torch) -> str:
 def phase_build() -> None:
     from repro_torch.kernels import _build
     names = ("krylov_fused", "factor_fused", "trsm", "spmv", "gemm",
-             "qr_fused")
+             "qr_fused", "attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         paths = list(pool.map(_build.build, names))
@@ -634,13 +702,14 @@ def _backward_error(a, b, x) -> float:
 
 
 @contextlib.contextmanager
-def _recorded_shapes(ops, name):
-    """Collect the shapes of the first argument of every call of the
-    ``kernels.ops`` wrapper ``name``; yields the set."""
+def _recorded_shapes(ops, name, key=None):
+    """Collect the shapes of the first argument (or ``key`` of the
+    arguments) of every call of the ``kernels.ops`` wrapper ``name``;
+    yields the set."""
     shapes, real = set(), getattr(ops, name)
 
     def call(v, *args, **kw):
-        shapes.add(tuple(v.shape))
+        shapes.add(tuple(v.shape) if key is None else key(v, *args, **kw))
         return real(v, *args, **kw)
 
     setattr(ops, name, call)
@@ -1450,6 +1519,344 @@ def phase_s_step_main(torch, cg_ms_per_iter: dict) -> dict:
     return launches
 
 
+def _attention_key(q, k, v=None, *, causal=True, window=None):
+    """A flash-attention call's shape, dtype and mask."""
+    b, hq, tq, d = q.shape
+    return (b, hq, k.shape[1], tq, k.shape[2], d, causal, window,
+            str(q.dtype).removeprefix("torch."))
+
+
+def _attention_cost(b, hq, hkv, tq, tk, d, causal, window, itemsize):
+    """Flops and bytes of one attention call: 4·D flops a visible (query,
+    key) pair and query head; q, k and v read once, o written once."""
+    import numpy as np
+    qpos = np.arange(tq, dtype=np.int64) + (tk - tq)
+    hi = np.minimum(qpos, tk - 1) if causal else np.full(tq, tk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window is not None \
+        else np.zeros(tq, np.int64)
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum())
+    return (4.0 * b * hq * d * pairs,
+            float(itemsize) * d * (2 * b * hq * tq + 2 * b * hkv * tk))
+
+
+def _attention_bound(flops, nbytes, itemsize) -> tuple[float, str]:
+    """The least time in ms: bytes over the memory rate, flops over the
+    bf16 tensor-core rate (2-byte inputs) or the float32 rate."""
+    peak = BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _time_call(torch, fn, budget_ms: float = 300.0) -> float:
+    """``time_ms`` over as many calls as fit in about ``budget_ms`` (2 to
+    50), judged by one call on the host clock."""
+    _, first_ms = _host_ms(torch, fn)
+    return time_ms(torch, fn,
+                   max(2, min(50, int(budget_ms / max(first_ms, 1e-3)))))
+
+
+def _sdpa_call(torch, q, k, v, causal, window):
+    """``scaled_dot_product_attention`` on the same tensors, the
+    yardstick: ``is_causal`` where it means the same mask (its causal mask
+    is top-left aligned), else an explicit end-aligned boolean mask."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tq, tk = q.shape[2], k.shape[2]
+    if window is None and (not causal or tq == tk):
+        return (lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
+                f"is_causal={causal}")
+    qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones(tq, tk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return (lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True),
+            "end-aligned boolean attn_mask")
+
+
+def phase_attention_kernel(torch) -> tuple[dict, set]:
+    """Kernel 10 against its plain version at the serving path's shapes
+    and the other configs' (``ATTENTION_CASES``), timed beside the plain
+    version, SDPA and the bound.  Returns the record row and the shapes
+    held."""
+    from repro_torch.kernels import attention, ref
+    dev = torch.device("cuda")
+    record, held = {}, set()
+    for i, (label, b, hq, hkv, tq, tk, d, causal, window, dt) in \
+            enumerate(ATTENTION_CASES):
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        q = torch.randn(b, hq, tq, d, generator=g, device=dev).to(dtype)
+        k = torch.randn(b, hkv, tk, d, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, hkv, tk, d, generator=g, device=dev).to(dtype)
+        kw = dict(causal=causal, window=window)
+        got = attention.flash_attention(q, k, v, **kw)
+        again = attention.flash_attention(q, k, v, **kw)
+        if b * hq * tq * tk * 4 > ATTENTION_PLAIN_BYTES:
+            # no room for the plain version's (Tq, Tk) scores: the first
+            # rows against the first keys and the last rows against all
+            # keys, each an exact sub-problem (the ends stay aligned)
+            r = ATTENTION_ROWS
+            pieces = [(slice(0, r), q[:, :, :r], k[:, :, :r], v[:, :, :r]),
+                      (slice(tq - r, tq), q[:, :, -r:], k, v)]
+            plain_what = (f"plain on rows [0, {r}) x keys [0, {r}) and "
+                          f"rows [{tq - r}, {tq}) x all keys")
+        else:
+            pieces = [(slice(None), q, k, v)]
+            plain_what = "plain"
+
+        def plain(cast=lambda x: x):
+            return [ref.attention(cast(qq), cast(kk), cast(vv), **kw)
+                    for _, qq, kk, vv in pieces]
+        # held against the plain version in float32 from the same inputs,
+        # before its output is rounded to their type
+        wants = plain(lambda x: x.float())
+        pairs = [(got[:, :, rows].float(), w)
+                 for (rows, *_), w in zip(pieces, wants)]
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"attention {label}: reruns differ")
+        err = max(float((x - w).abs().max()) for x, w in pairs)
+        scale = max(float(w.abs().max()) for _, w in pairs)
+        finite = bool(torch.isfinite(got).all())
+        if dtype == torch.float32:
+            ok = all(torch.allclose(x, w, rtol=1e-4, atol=1e-4)
+                     for x, w in pairs)
+            tol = "rtol=atol=1e-4"
+        else:
+            u = ATTENTION_ROUNDING[dt]
+            worst = max(float(((x - w).abs() / (u * w.abs()
+                                                + ATTENTION_F32_SLACK)).max())
+                        for x, w in pairs)
+            ok = worst <= 1.0
+            tol = (f"|d| <= {u:.3e} |o_f32| + {ATTENTION_F32_SLACK:g} "
+                   f"element by element; worst share of the limit "
+                   f"{worst:.4f}")
+        check(finite and ok, f"attention {label}: kernel and plain version "
+                             f"differ (max abs err {err}, {tol})")
+        ms = _time_call(torch, lambda: attention.flash_attention(q, k, v,
+                                                                  **kw))
+        plain_ms = _time_call(torch, plain)
+        sdpa, sdpa_what = _sdpa_call(torch, q, k, v, causal, window)
+        sdpa_err = float((sdpa().float() - got.float()).abs().max())
+        library_ms = _time_call(torch, sdpa)
+        itemsize = q.element_size()
+        flops, nbytes = _attention_cost(b, hq, hkv, tq, tk, d, causal,
+                                        window, itemsize)
+        bound_ms, bound_by = _attention_bound(flops, nbytes, itemsize)
+        simt_ms = flops / FP32_FLOPS_PER_S * 1e3
+        print(f"[attention-kernel] {label}: B={b} Hq={hq} Hkv={hkv} Tq={tq} "
+              f"Tk={tk} D={d} causal={causal} window={window} {dt} "
+              f"max_abs_err={err:.3e} max_abs_o={scale:.3e} ({tol}; "
+              f"{plain_what}) bitwise_rerun=True ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+              f"(scaled_dot_product_attention, {sdpa_what}; max|d| vs "
+              f"kernel {sdpa_err:.3e}) bound_ms={bound_ms:.6f} "
+              f"bound_by={bound_by} flops={flops:.4e} bytes={nbytes:.4e} "
+              f"TFLOPps={flops / ms / 1e9:.3f} "
+              f"bound_share={bound_ms / ms:.4f} "
+              f"fp32_simt_bound_ms={simt_ms:.6f} "
+              f"fp32_simt_share={simt_ms / ms:.4f} "
+              f"library_over_kernel={library_ms / ms:.4f}")
+        held.add(_attention_key(q, k, causal=causal, window=window))
+        if label == ATTENTION_RECORD_CASE:
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
+        del q, k, v, got, again, pairs
+    torch.cuda.empty_cache()
+    return record, held
+
+
+def _profile_ms(torch, fn) -> tuple[int, float, list]:
+    """Top-level PyTorch operators that ``fn`` runs, the device time of
+    its kernels in ms (None when the trace holds no CUDA kernel) and the
+    five kernels of most device time, (name, ms, calls), by
+    ``torch.profiler`` (CPU and CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sum(1 for e in prof.events() if e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+    kernels = sorted(
+        ((e.key, getattr(e, "self_device_time_total", 0) / 1e3, e.count)
+         for e in prof.key_averages()
+         if str(e.device_type).endswith("CUDA")), key=lambda r: -r[1])
+    device_ms = sum(ms for _, ms, _ in kernels)
+    return ops, (device_ms or None), [(name[:60], round(ms, 3), n)
+                                      for name, ms, n in kernels[:5]]
+
+
+def phase_serve(torch, held: set) -> dict:
+    """The serving path of qwen3-1.7b at full width and depth, random
+    weights from a seeded generator on the card: prefill of 4 requests of
+    1920 tokens into a 2048-slot cache, 128 greedy decode steps, forward
+    over the 2048 tokens (decode must match it), the prefill on the plain
+    attention path, a 32768-token prefill, then the same serve on a
+    float32 copy.  The kernel's counter is set to 0 before each drive and
+    read after it."""
+    from repro_torch import device as tdev
+    from repro_torch import runtime
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import attention, ops
+    from repro_torch.models import registry, transformer
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = _host_ms(torch, lambda: registry.init_params(cfg, gen))
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    print(f"[serve] {SERVE_ARCH}: layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.padded_vocab} params={n_params} "
+          f"(analytic {cfg.param_count()}) weight_bytes={weight_bytes} "
+          f"init_ms={init_ms:.3f}")
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    launches, seen = {"flash_attention": 0}, set()
+
+    def drive(label, fn, want):
+        attention.reset_launches()
+        with _recorded_shapes(ops, "flash_attention", _attention_key) as \
+                keys, _kernel_events(torch, ops, ("flash_attention",)) as ev:
+            out, ms = _host_ms(torch, fn)
+        got = attention.LAUNCHES["flash_attention"]
+        check(got == want, f"[serve] {label}: {got} flash_attention "
+                           f"launches, expected {want}")
+        launches["flash_attention"] += got
+        seen.update(keys)
+        return out, ms, sum(s.elapsed_time(e) for s, e in ev)
+
+    def logits_close(label, got, want, tol):
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        print(f"[serve] {label}: max|d|={err:.4e} max|logit|={top:.4e} "
+              f"ratio={err / top:.4e} (limit {tol})")
+        check(bool(torch.isfinite(got).all()) and err <= tol * top,
+              f"[serve] {label}: max|d| {err} > {tol} * {top}")
+
+    def serve(c, tag, tol):
+        b, p = SERVE_BATCH, SERVE_PROMPT
+        batch = {"tokens": prompts}
+        drive(f"{tag} warm-up prefill", lambda: transformer.prefill(
+            model, batch, c, cache_len=SERVE_CACHE), LAYER_LAUNCHES)
+        (logits, state), ms, kern_ms = drive(
+            f"{tag} prefill", lambda: transformer.prefill(
+                model, batch, c, cache_len=SERVE_CACHE), LAYER_LAUNCHES)
+        check(tuple(logits.shape) == (b, p, cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"[serve] {tag} prefill: logits not finite of shape "
+              f"{(b, p, cfg.padded_vocab)}")
+        prefill_ms = ms
+        print(f"[serve] {tag} prefill B={b} T={p}: ms={ms:.3f} "
+              f"tokens_per_s={b * p / ms * 1e3:.1f} kernel_ms={kern_ms:.3f} "
+              f"kernel_share={kern_ms / ms:.4f} launches={LAYER_LAUNCHES}")
+
+        def decode():
+            tok, toks, steps = logits[:, -1].argmax(-1), [], []
+            for i in range(SERVE_DECODE):
+                toks.append(tok)
+                lg, _ = registry.decode_step(model, state, tok, p + i, c)
+                steps.append(lg)
+                tok = lg.argmax(-1)
+            return torch.stack(toks, 1), torch.stack(steps, 1)
+
+        (gen_toks, step_logits), ms, _ = drive(f"{tag} decode", decode, 0)
+        decode_ms = ms / SERVE_DECODE
+        check(bool(torch.isfinite(step_logits).all()),
+              f"[serve] {tag} decode: logits not finite")
+        print(f"[serve] {tag} decode {SERVE_DECODE} steps B={b}: "
+              f"ms_per_token={ms / SERVE_DECODE:.4f} "
+              f"tokens_per_s={b * SERVE_DECODE / ms * 1e3:.1f} "
+              f"weights_floor_ms={weight_bytes / HBM_BYTES_PER_S * 1e3:.4f}"
+              f" launches=0")
+        tokens = torch.cat([prompts, gen_toks], 1)
+        full, ms, kern_ms = drive(
+            f"{tag} forward", lambda: registry.forward(
+                model, {"tokens": tokens}, c), LAYER_LAUNCHES)
+        print(f"[serve] {tag} forward B={b} T={SERVE_CACHE}: ms={ms:.3f} "
+              f"kernel_share={kern_ms / ms:.4f}")
+        logits_close(f"{tag} decode vs forward at positions "
+                     f"[{p}, {SERVE_CACHE})", step_logits, full[:, p:], tol)
+        del full
+        # one more step (ring slot 0) and one more prefill, traced: the
+        # host's operator count and the device's busy time in each
+        (step_ops, step_dev, step_top), _, _ = drive(
+            f"{tag} traced decode step", lambda: _profile_ms(
+                torch, lambda: registry.decode_step(
+                    model, state, gen_toks[:, -1], SERVE_CACHE, c)), 0)
+        (pre_ops, pre_dev, pre_top), _, _ = drive(
+            f"{tag} traced prefill", lambda: _profile_ms(
+                torch, lambda: transformer.prefill(
+                    model, batch, c, cache_len=SERVE_CACHE)),
+            LAYER_LAUNCHES)
+
+        def busy(dev_ms, ms):
+            return "not measured" if dev_ms is None else f"{dev_ms / ms:.4f}"
+
+        print(f"[serve] {tag} traced: decode step operators={step_ops} "
+              f"device_ms={step_dev} (busy share of the untraced "
+              f"{decode_ms:.4f} ms a token: {busy(step_dev, decode_ms)}); "
+              f"prefill operators={pre_ops} device_ms={pre_dev} (busy "
+              f"share of the untraced {prefill_ms:.3f} ms: "
+              f"{busy(pre_dev, prefill_ms)})")
+        print(f"[serve] {tag} traced decode step, top kernels (name, "
+              f"device ms, calls): {step_top}")
+        print(f"[serve] {tag} traced prefill, top kernels (name, device "
+              f"ms, calls): {pre_top}")
+        return logits[:, -1]
+
+    last = serve(cfg, "bfloat16", BF16_LOGIT_TOL)
+    with runtime.force_kernel(False):
+        (plain, _), ms, _ = drive("bfloat16 plain-attention prefill",
+                                  lambda: transformer.prefill(
+                                      model, {"tokens": prompts}, cfg), 0)
+    print(f"[serve] bfloat16 prefill with force_kernel(False) (dense "
+          f"attention): ms={ms:.3f}")
+    logits_close("bfloat16 prefill last token: kernel vs plain attention",
+                 last, plain[:, -1], BF16_LOGIT_TOL)
+    del plain
+    print(f"[serve] bfloat16 serve peak_memory_bytes="
+          f"{torch.cuda.max_memory_allocated()}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    long_toks = torch.randint(0, cfg.vocab_size, (1, LONG_PREFILL),
+                              generator=gen, device=dev)
+    out, ms, kern_ms = drive("long prefill", lambda: registry.forward(
+        model, {"tokens": long_toks}, cfg, last_only=True), LAYER_LAUNCHES)
+    check(tuple(out.shape) == (1, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(out).all()),
+          "[serve] long prefill: last-token logits not finite")
+    print(f"[serve] long prefill B=1 T={LONG_PREFILL} (last_only): "
+          f"ms={ms:.3f} tokens_per_s={LONG_PREFILL / ms * 1e3:.1f} "
+          f"kernel_ms={kern_ms:.3f} kernel_share={kern_ms / ms:.4f} "
+          f"peak_memory_bytes={torch.cuda.max_memory_allocated()}")
+    del out, long_toks
+
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                act_dtype="float32")
+    model.float()
+    with tdev.full_fp32():
+        serve(cfg32, "float32", F32_LOGIT_TOL)
+    print(f"[serve] launches over the serving path: {launches}")
+    print(f"[serve] kernel shapes on the serving path: {sorted(seen)}")
+    unheld = seen - held
+    check(not unheld, f"the serving path gave flash_attention shapes that "
+                      f"phase 3f does not hold: {sorted(unheld)}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_cli(torch) -> None:
     from repro_torch.kernels import krylov_fused
     from repro_torch.launch import solve as cli
@@ -1513,6 +1920,7 @@ def main() -> int:
     sparse_row = phase_sparse_kernels(torch)
     ls_rows = phase_ls_kernels(torch)
     gram_row = phase_gram_kernel(torch)
+    attention_row, attention_held = phase_attention_kernel(torch)
     launches, cg_dense_ms = phase_main_path(torch)
     direct_launches, direct_ref_errors = phase_direct_main(torch)
     sparse_launches, cg_sparse_ms = phase_sparse_main(torch,
@@ -1521,6 +1929,7 @@ def main() -> int:
     ls_launches = phase_ls_main(torch, direct_ref_errors)
     s_step_launches = phase_s_step_main(
         torch, {"dense": cg_dense_ms, **cg_sparse_ms})
+    serve_launches = phase_serve(torch, attention_held)
     phase_cli(torch)
     phase_cli_direct(torch)
     phase_cli_ls(torch)
@@ -1545,7 +1954,9 @@ def main() -> int:
          **ls_rows[name]}
         for name, meta in LS_KERNEL_RECORD.items()] + [
         {"name": "fused_gram", "route": "cuda", **GRAM_RECORD,
-         "launches": s_step_launches["fused_gram"], **gram_row}]}
+         "launches": s_step_launches["fused_gram"], **gram_row}] + [
+        {"name": "flash_attention", "route": "cuda", **ATTENTION_RECORD,
+         "launches": serve_launches["flash_attention"], **attention_row}]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

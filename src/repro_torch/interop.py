@@ -1,11 +1,12 @@
-"""Carry a solver's state across from numpy arrays.
+"""Carry a solver's state or a model's weights across from numpy arrays.
 
 For a solver, the system, the preconditioner's state and a direct method's
 factors are what weights are to a model.  These functions take them as
 numpy arrays — for example the ``data`` of a :mod:`repro` preconditioner,
-the factors of :func:`repro.core.lu.lu_factor` or the arrays of a
-:mod:`repro.sparse` ``BSR`` / ``ELL``, converted with ``numpy.asarray`` —
-so that both packages apply the same operator.
+the factors of :func:`repro.core.lu.lu_factor`, the arrays of a
+:mod:`repro.sparse` ``BSR`` / ``ELL`` or a model's param pytree, converted
+with ``numpy.asarray`` — so that both packages apply the same operator or
+run the same model.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import precond as _precond
 from repro_torch.core import qr as _qr
+from repro_torch.models import layers as _layers
+from repro_torch.models import transformer as _transformer
 from repro_torch.sparse import formats as _formats
 
 
@@ -99,3 +102,39 @@ def ell_from_numpy(data, cols, valid, shape, *, device=None) -> _formats.ELL:
     dev = _device.resolve(device)
     return _formats.ELL(_tensor(data, dev), np.asarray(cols),
                         np.asarray(valid), shape, device=dev)
+
+
+def _weight(a, dtype: torch.dtype, dev) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, as ``numpy.asarray`` gives
+    them from a JAX array) as a ``dtype`` tensor on ``dev``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # no numpy type torch reads: the bits
+        bits = np.ascontiguousarray(a).view(np.uint16).astype(np.int16)
+        t = torch.from_numpy(bits).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, order="C"))
+    return t.to(device=dev, dtype=dtype)
+
+
+def _group(tree: dict, dtype, dev, index=None) -> _layers.Params:
+    return _layers.Params({
+        name: (_group(item, dtype, dev, index) if isinstance(item, dict)
+               else _weight(item if index is None else np.asarray(item)[index],
+                            dtype, dev))
+        for name, item in tree.items()})
+
+
+def transformer_params_from_numpy(params: dict, cfg, *, device=None
+                                  ) -> _transformer.Transformer:
+    """The port's dense model from the reference's param pytree for
+    ``cfg`` (``{"embed", "layers", "final_norm"}``, every leaf a numpy
+    array, the layers stacked on a leading axis as the reference's
+    ``init_params`` makes them), in ``cfg``'s param dtype on ``device``
+    (``None``: the GPU)."""
+    dev = _device.resolve(device)
+    dtype = _layers.dtype_of(cfg)
+    layers = [_group(params["layers"], dtype, dev, i)
+              for i in range(cfg.num_layers)]
+    return _transformer.Transformer(
+        _group(params["embed"], dtype, dev), layers,
+        _group(params["final_norm"], dtype, dev))

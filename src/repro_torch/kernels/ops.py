@@ -9,6 +9,7 @@ any device.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import factor_fused as _factor_fused
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import krylov_fused as _krylov_fused
@@ -16,6 +17,12 @@ from repro_torch.kernels import qr_fused as _qr_fused
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import spmv as _spmv
 from repro_torch.kernels import trsm as _trsm
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """Softmax attention, (B, Hq, Tq, D) over (B, Hkv, Tk, D); see
+    :func:`attention.flash_attention`."""
+    return _attention.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def fused_cg_update(x, r, p, ap, alpha, *, use_kernel: bool = True):

@@ -63,6 +63,36 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None,
+              scale: float | None = None) -> torch.Tensor:
+    """Grouped-query softmax attention.
+
+    q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D) with Hq % Hkv == 0.  Query i
+    sits at position i + (Tk − Tq), so the ends align (prefill, decode).
+    ``window``: the number of visible past positions, self included
+    (``None``: all).  Logits in float32; a masked logit is −inf, so a row
+    with no visible key is NaN.  Output in q's dtype.
+    """
+    _, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = (d ** -0.5) if scale is None else scale
+    kk = k.repeat_interleave(group, dim=1).float()
+    vv = v.repeat_interleave(group, dim=1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones(tq, tk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vv).to(q.dtype)
+
+
 def qr_panel_update(a: torch.Tensor, v: torch.Tensor, t: torch.Tensor,
                     k: int, *, nb: int) -> torch.Tensor:
     """One QR trailing update on the (m, n) working matrix, in place:

@@ -12,16 +12,19 @@ rtol = atol = 1e-5 and dots rtol 1e-4; triangular solves rtol = atol =
 its largest entry, rtol two float32 ulps; the BSR SpMV rtol 1e-5 in
 float32 and 1e-12 in float64, atol the same times max|y|; the tiled GEMM
 rtol 1e-4 and atol 1e-4 of max|C|; the QR update atol 1e-4 of the change
-it makes, rtol 1e-5), at the tests' shapes and at the main paths' sizes,
-and must give bitwise-identical results when rerun.
+it makes, rtol 1e-5; flash attention rtol = atol = 1e-4 in float32, and
+in bf16 and fp16 element by element within one output rounding (2^-8 and
+2^-11 of the value) plus 1e-5 of the plain version computed in float32 from
+the same inputs), at the tests' shapes and at
+the main paths' sizes, and must give bitwise-identical results when rerun.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import api, cholesky, lu
-from repro_torch.kernels import (factor_fused, gemm, krylov_fused, qr_fused,
-                                 ref, spmv, trsm)
+from repro_torch.kernels import (attention, factor_fused, gemm, krylov_fused,
+                                 qr_fused, ref, spmv, trsm)
 from repro_torch.sparse import BSR, problems
 from repro_torch.sparse.operator import SparseOperator
 
@@ -650,3 +653,149 @@ def test_float32_ca_cg_s4_stop_moves_with_the_gram_rounding(cuda_device,
             print(f"[s-step-witness] ca_cg s=4 spd n={n} float32 "
                   f"seed={seed} " + " | ".join(cells))
         assert kernel_rel <= 1e-2, (seed, kernel_rel)
+
+
+# --------------------------------------------------------------------------
+# kernel 10: flash attention, and the serving path through it
+# --------------------------------------------------------------------------
+
+# one ulp of the largest output in the working type: the kernel and the
+# plain version both compute in float32 and round once
+# unit roundoff of the output type: one rounding of the float32 result
+ATTENTION_ROUNDING = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+ATTENTION_F32_SLACK = 1e-5
+
+
+def _attention_inputs(dev, b, hq, hkv, tq, tk, d, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(b, h, t, d, generator=g, device=dev).to(dtype)
+            for h, t in ((hq, tq), (hkv, tk), (hkv, tk))]
+
+
+def _plain_attention_f32(q, k, v, **kw):
+    """The plain version in float32 from the same (low-precision) inputs,
+    before the output is rounded to their type."""
+    return ref.attention(q.float(), k.float(), v.float(), **kw)
+
+
+def _attention_close(got, want):
+    """``want`` is the float32 plain version; a bf16 / fp16 ``got`` may
+    differ from it by one rounding of each element, plus float32 slack."""
+    assert want.dtype == torch.float32 and got.shape == want.shape
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        err = (got.float() - want).abs()
+        limit = (ATTENTION_ROUNDING[got.dtype] * want.abs()
+                 + ATTENTION_F32_SLACK)
+        assert (err <= limit).all(), float((err / limit).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=str)
+@pytest.mark.parametrize("d", [16, 64, 112, 128])
+@pytest.mark.parametrize("case", [
+    (2, 4, 2, 256, 256, True, None), (2, 4, 2, 256, 256, False, None),
+    (1, 8, 1, 256, 256, True, 128), (1, 4, 2, 128, 512, True, None),
+    (1, 4, 4, 100, 100, True, None), (1, 2, 1, 32, 96, True, 40)],
+    ids=["causal", "full", "window", "offset", "short", "short-window"])
+def test_attention_kernel_matches_plain_version(cuda_device, case, d, dtype):
+    b, hq, hkv, tq, tk, causal, window = case
+    q, k, v = _attention_inputs(cuda_device, b, hq, hkv, tq, tk, d, dtype)
+    before = attention.LAUNCHES["flash_attention"]
+    got = attention.flash_attention(q, k, v, causal=causal, window=window)
+    again = attention.flash_attention(q, k, v, causal=causal, window=window)
+    assert attention.LAUNCHES["flash_attention"] == before + 2
+    assert torch.equal(got, again)              # no atomics: bitwise reruns
+    _attention_close(got, _plain_attention_f32(q, k, v, causal=causal,
+                                               window=window))
+
+
+@pytest.mark.cuda
+def test_attention_kernel_reads_strided_views(cuda_device):
+    """The attention layer hands over head-transposed views of the
+    projections; the kernel reads their strides."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(2, 256, 8, 64, generator=g, device=cuda_device)
+    heads = x.transpose(1, 2)                   # (2, 8, 256, 64), strided
+    q, k, v = heads[:, :4], heads[:, 4:6], heads[:, 6:]
+    assert not q.is_contiguous()
+    _attention_close(attention.flash_attention(q, k, v),
+                     ref.attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous()))
+
+
+@pytest.mark.cuda
+def test_attention_kernel_rows_without_a_visible_key(cuda_device):
+    """Causal with Tq > Tk, as the reference kernel does it: rows whose
+    tiles are all skipped return 0, rows masked inside a live tile the mean
+    of its values (the plain version returns NaN there); the other rows
+    match the plain version."""
+    for tq, tk in ((256, 128), (128, 64)):
+        q, k, v = _attention_inputs(cuda_device, 1, 2, 1, tq, tk, 16,
+                                    torch.float32, seed=tq)
+        got = attention.flash_attention(q, k, v)
+        dead = tq - tk
+        _attention_close(got[:, :, dead:],
+                         ref.attention(q, k, v)[:, :, dead:])
+        if tq == 256:
+            assert (got[:, :, :dead] == 0).all()
+        else:
+            want = v.mean(dim=2, keepdim=True).expand(1, 2, dead, 16)
+            torch.testing.assert_close(got[:, :, :dead], want, rtol=1e-5,
+                                       atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_attention_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    q, k, v = _attention_inputs(cuda_device, 1, 4, 2, 256, 256, 64,
+                                torch.float32)
+    before = attention.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="not tiled"):
+        attention.flash_attention(q[:, :, :192], k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 1, 128, 264, device=cuda_device)
+        attention.flash_attention(big, big, big)
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        attention.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError, match="q is"):
+        attention.flash_attention(q, k.half(), v.half())
+    three = k[:, :1].expand(1, 3, 256, 64)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        attention.flash_attention(q, three, three)
+    leaf = q.clone().requires_grad_()
+    with pytest.raises(ValueError, match="requires grad"):
+        attention.flash_attention(leaf * 1.0, k, v)
+    assert attention.LAUNCHES["flash_attention"] == before
+    with torch.inference_mode():                # the serving path's mode
+        attention.flash_attention(leaf * 1.0, k, v)
+    assert attention.LAUNCHES["flash_attention"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "tinyllama-1.1b"])
+def test_serving_goes_through_the_attention_kernel(cuda_device, arch):
+    """The REDUCED model on the card: one kernel launch a layer a prefill
+    and none a decode step, and decode matches forward at the reference's
+    bar (5e-2)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import registry, transformer
+    cfg = get_config(arch, reduced=True)
+    model = registry.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(1))
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=g,
+                         device=cuda_device)
+    attention.reset_launches()
+    _, state = transformer.prefill(model, {"tokens": toks[:, :128]}, cfg,
+                                   cache_len=256)
+    assert attention.LAUNCHES["flash_attention"] == cfg.num_layers
+    got = [registry.decode_step(model, state, toks[:, i], i, cfg)[0]
+           for i in range(128, 136)]
+    assert attention.LAUNCHES["flash_attention"] == cfg.num_layers
+    full = registry.forward(model, {"tokens": toks}, cfg)
+    assert attention.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+    torch.testing.assert_close(torch.stack(got, 1), full[:, 128:136],
+                               rtol=5e-2, atol=5e-2)

@@ -18,7 +18,9 @@ import torch
 
 from repro_torch import interop
 from repro_torch.core import api
+from repro_torch.configs.base import get_config
 from repro_torch.launch import solve as cli
+from repro_torch.models import registry, transformer
 from repro_torch.sparse import BSR, ELL, problems
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,7 +64,16 @@ def test_port_runs_without_jax():
         "r = api.solve(bsr, np.ones(64, np.float32), method='bicg', "
         "backend='cuda', device='cpu', return_info=True)\n"
         "assert bool(r.converged), r\n"
-        "assert not _build._LIBS, 'a CPU solve loaded a kernel library'\n"
+        "import torch\n"
+        "from repro_torch.configs.base import get_config\n"
+        "from repro_torch.models import registry\n"
+        "cfg = get_config('qwen3-1.7b', reduced=True)\n"
+        "m = registry.init_params(cfg, torch.Generator().manual_seed(0), "
+        "device='cpu')\n"
+        "lg = registry.forward(m, {'tokens': torch.zeros(1, 128, "
+        "dtype=torch.long)}, cfg)\n"
+        "assert bool(torch.isfinite(lg).all())\n"
+        "assert not _build._LIBS, 'a CPU run loaded a kernel library'\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
         "if sys.modules[m] is not None]\n"
         "print('OK')\n")
@@ -106,6 +117,25 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(no_gpu):
             make()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--n", "16", "--method", "cg"])
+    # the model entry points: weights drawn, weights carried across
+    cfg = get_config("qwen3-1.7b", reduced=True)
+    model = registry.init_params(cfg, torch.Generator(), device="cpu")
+    tree = {"embed": {"embedding": model["embed"]["embedding"].float()
+                      .numpy()},
+            "layers": {group: {name: np.stack([
+                layer[group][name].float().numpy()
+                for layer in model["layers"]])
+                for name, _ in model["layers"][0][group].named_parameters()}
+                for group in ("ln1", "attn", "ln2", "mlp")},
+            "final_norm": {"scale": model["final_norm"]["scale"].float()
+                           .numpy()}}
+    assert interop.transformer_params_from_numpy(tree, cfg, device="cpu") \
+        ["layers"][1]["attn"]["wq"].dtype == torch.bfloat16
+    for make in (lambda: registry.init_params(cfg, torch.Generator()),
+                 lambda: transformer.init_params(cfg, torch.Generator()),
+                 lambda: interop.transformer_params_from_numpy(tree, cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 @pytest.mark.parametrize("method", ["cg", "gmres", "lu", "cholesky"])

@@ -110,7 +110,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    stop there is decided by the Gram's rounding in both packages, so it
    is not held to the reference, but its best iterate's true relative
    residual is held to 1e-2;
-3f. attention kernel (kernel 10), at the serving path's shapes (qwen3-1.7b:
+3f. attention kernel (kernel 10: bf16 on the tensor cores,
+   ``csrc/attention_wgmma.cu``, float32 on the float32 pipes,
+   ``csrc/attention.cu``), with the tensor-core kernel's ptxas registers,
+   shared memory and spills and the count of ``HGMMA`` instructions in its
+   SASS (``cuobjdump``; a count of 0 fails), then at the serving path's
+   shapes (qwen3-1.7b:
    B = 4, 16 / 8 heads, D = 128, causal, T = 1920 and 2048, bf16 and the
    float32 copy's float32, and T = 32768 at B = 1) and the other configs'
    (tinyllama's group of 8 at D = 64, hymba's window of 1024 at T = 4096,
@@ -125,7 +130,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    plain version, ``scaled_dot_product_attention`` (``is_causal`` where
    Tq = Tk, else an explicit end-aligned mask) and its bound max(bytes ÷
    3.35 TB/s, 4·D flops a visible pair and head ÷ 989 TFLOP/s bf16 or 67
-   TFLOP/s float32), with the float32-pipe (67 TFLOP/s) share beside it;
+   TFLOP/s float32), with the float32-pipe (67 TFLOP/s) share beside it,
+   and which kernel each case ran;
 4h. serving path: qwen3-1.7b at full width and depth (28 layers, 1.72 B
    parameters, bf16), random weights from a seeded generator on the card;
    4 requests of 1920 prompt tokens prefilled into a 2048-slot cache, 128
@@ -135,9 +141,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    with the kernel against ``force_kernel(False)`` (dense attention) within
    5e-2 · max|logit|; a 32768-token ``forward(last_only=True)``; then the
    same serve on a float32 copy of the model in full float32, where decode
-   must match forward within 1e-3 · max|logit|.  The kernel's counter is
-   set to 0 before each drive and must read 28 after each prefill and
-   forward, 0 after the decode steps and the plain prefill; every shape
+   must match forward within 1e-3 · max|logit|.  The kernels' counters
+   are set to 0 before each drive: the tensor-core kernel's must read 28
+   after each bf16 prefill and forward, the float32 kernel's 28 after each
+   float32 one (the other kernel's 0), both 0 after the decode steps and
+   the plain prefill; every shape
    the kernel gets must be one phase 3f held.  Prefill tokens/s, decode
    ms a token beside the weights' floor (bytes ÷ 3.35 TB/s), the kernel's
    share of each prefill (CUDA events), peak memory, and one more decode
@@ -325,8 +333,14 @@ ATTENTION_PLAIN_BYTES = 16e9         # largest float32 score tensor held
 # one rounding of a float32 result to the output type, and float32 slack
 ATTENTION_ROUNDING = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
 ATTENTION_F32_SLACK = 1e-5
-ATTENTION_RECORD = {"source": "src/repro_torch/kernels/csrc/attention.cu",
-                    "replaces": "src/repro/kernels/attention.py:110"}
+# kernel 10's two CUDA kernels: (record name, launch counter, source, the
+# 3f case of its record)
+ATTENTION_KERNELS = (
+    ("flash_attention", "flash_attention_wgmma",
+     "src/repro_torch/kernels/csrc/attention_wgmma.cu", ATTENTION_RECORD_CASE),
+    ("flash_attention_f32", "flash_attention_f32",
+     "src/repro_torch/kernels/csrc/attention.cu", "qwen3 float32 copy"))
+ATTENTION_REPLACES = "src/repro/kernels/attention.py:110"
 
 
 class SmokeFailure(Exception):
@@ -374,7 +388,7 @@ def phase_card(torch) -> str:
 def phase_build() -> None:
     from repro_torch.kernels import _build
     names = ("krylov_fused", "factor_fused", "trsm", "spmv", "gemm",
-             "qr_fused", "attention")
+             "qr_fused", "attention", "attention_wgmma")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         paths = list(pool.map(_build.build, names))
@@ -1576,14 +1590,38 @@ def _sdpa_call(torch, q, k, v, causal, window):
             "end-aligned boolean attn_mask")
 
 
+def _tensor_core_sass() -> None:
+    """The tensor-core kernel's ptxas report and the count of ``HGMMA``
+    (wgmma) instructions in its SASS; a count of 0 fails."""
+    from repro_torch.kernels import _build
+    for line in _build.BUILD_LOGS.get("attention_wgmma", "").splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            print(f"[attention-kernel] ptxas: {line.strip()}")
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        print("[attention-kernel] HGMMA count: not measured (no cuobjdump "
+              "in the toolkit)")
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build.build("attention_wgmma"))],
+                          capture_output=True, text=True)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
+    count = sum(1 for line in sass.stdout.splitlines() if "HGMMA" in line)
+    print(f"[attention-kernel] HGMMA instructions in the SASS of "
+          f"attention_wgmma.cu: {count}")
+    check(count > 0, "the tensor-core attention kernel's SASS holds no "
+                     "HGMMA instruction")
+
+
 def phase_attention_kernel(torch) -> tuple[dict, set]:
     """Kernel 10 against its plain version at the serving path's shapes
     and the other configs' (``ATTENTION_CASES``), timed beside the plain
-    version, SDPA and the bound.  Returns the record row and the shapes
-    held."""
+    version, SDPA and the bound.  Returns the record row of each of its
+    two CUDA kernels and the shapes held."""
     from repro_torch.kernels import attention, ref
     dev = torch.device("cuda")
     record, held = {}, set()
+    _tensor_core_sass()
     for i, (label, b, hq, hkv, tq, tk, d, causal, window, dt) in \
             enumerate(ATTENTION_CASES):
         dtype = getattr(torch, dt)
@@ -1592,7 +1630,10 @@ def phase_attention_kernel(torch) -> tuple[dict, set]:
         k = torch.randn(b, hkv, tk, d, generator=g, device=dev).to(dtype)
         v = torch.randn(b, hkv, tk, d, generator=g, device=dev).to(dtype)
         kw = dict(causal=causal, window=window)
+        before = dict(attention.LAUNCHES)
         got = attention.flash_attention(q, k, v, **kw)
+        ran = [name for name, n in attention.LAUNCHES.items()
+               if name != "flash_attention" and n > before[name]]
         again = attention.flash_attention(q, k, v, **kw)
         if b * hq * tq * tk * 4 > ATTENTION_PLAIN_BYTES:
             # no room for the plain version's (Tq, Tk) scores: the first
@@ -1646,6 +1687,12 @@ def phase_attention_kernel(torch) -> tuple[dict, set]:
                                         window, itemsize)
         bound_ms, bound_by = _attention_bound(flops, nbytes, itemsize)
         simt_ms = flops / FP32_FLOPS_PER_S * 1e3
+        # the tensor-core kernel feeds P as three bf16 / two fp16 terms:
+        # P·V is 2·D flops a pair a term on the tensor cores, QKᵀ 2·D
+        terms = {"bfloat16": 3, "float16": 2}.get(dt)
+        tc_note = "" if terms is None else (
+            f" tensor_core_TFLOPps={flops * (1 + terms) / 2 / ms / 1e9:.3f}"
+            f" ({1 + terms}·2·D flops a pair)")
         print(f"[attention-kernel] {label}: B={b} Hq={hq} Hkv={hkv} Tq={tq} "
               f"Tk={tk} D={d} causal={causal} window={window} {dt} "
               f"max_abs_err={err:.3e} max_abs_o={scale:.3e} ({tol}; "
@@ -1658,12 +1705,19 @@ def phase_attention_kernel(torch) -> tuple[dict, set]:
               f"bound_share={bound_ms / ms:.4f} "
               f"fp32_simt_bound_ms={simt_ms:.6f} "
               f"fp32_simt_share={simt_ms / ms:.4f} "
-              f"library_over_kernel={library_ms / ms:.4f}")
+              f"library_over_kernel={library_ms / ms:.4f} "
+              f"kernel={'+'.join(ran)}{tc_note}")
         held.add(_attention_key(q, k, causal=causal, window=window))
-        if label == ATTENTION_RECORD_CASE:
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": library_ms}
+        want_kernel = ("flash_attention_f32" if dt == "float32"
+                       else "flash_attention_wgmma")
+        check(ran == [want_kernel], f"attention {label}: {dt} ran {ran}, "
+                                    f"expected {want_kernel}")
+        for name, _, _, case in ATTENTION_KERNELS:
+            if label == case:
+                record[name] = {"max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by,
+                                "library_ms": library_ms}
         del q, k, v, got, again, pairs
     torch.cuda.empty_cache()
     return record, held
@@ -1720,17 +1774,22 @@ def phase_serve(torch, held: set) -> dict:
           f"init_ms={init_ms:.3f}")
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                             generator=gen, device=dev)
-    launches, seen = {"flash_attention": 0}, set()
+    launches, seen = dict.fromkeys(attention.LAUNCHES, 0), set()
 
-    def drive(label, fn, want):
+    def drive(label, fn, want, kernel="flash_attention_wgmma"):
+        """``want`` launches of ``kernel`` (a counter of
+        ``attention.LAUNCHES``) and none of kernel 10's other kernel."""
         attention.reset_launches()
         with _recorded_shapes(ops, "flash_attention", _attention_key) as \
                 keys, _kernel_events(torch, ops, ("flash_attention",)) as ev:
             out, ms = _host_ms(torch, fn)
-        got = attention.LAUNCHES["flash_attention"]
-        check(got == want, f"[serve] {label}: {got} flash_attention "
-                           f"launches, expected {want}")
-        launches["flash_attention"] += got
+        got = dict(attention.LAUNCHES)
+        expected = {name: (want if name in (kernel, "flash_attention")
+                           else 0) for name in got}
+        check(got == expected, f"[serve] {label}: launches {got}, expected "
+                               f"{expected}")
+        for name, n in got.items():
+            launches[name] += n
         seen.update(keys)
         return out, ms, sum(s.elapsed_time(e) for s, e in ev)
 
@@ -1742,14 +1801,15 @@ def phase_serve(torch, held: set) -> dict:
         check(bool(torch.isfinite(got).all()) and err <= tol * top,
               f"[serve] {label}: max|d| {err} > {tol} * {top}")
 
-    def serve(c, tag, tol):
+    def serve(c, tag, tol, kernel):
         b, p = SERVE_BATCH, SERVE_PROMPT
         batch = {"tokens": prompts}
         drive(f"{tag} warm-up prefill", lambda: transformer.prefill(
-            model, batch, c, cache_len=SERVE_CACHE), LAYER_LAUNCHES)
+            model, batch, c, cache_len=SERVE_CACHE), LAYER_LAUNCHES, kernel)
         (logits, state), ms, kern_ms = drive(
             f"{tag} prefill", lambda: transformer.prefill(
-                model, batch, c, cache_len=SERVE_CACHE), LAYER_LAUNCHES)
+                model, batch, c, cache_len=SERVE_CACHE), LAYER_LAUNCHES,
+            kernel)
         check(tuple(logits.shape) == (b, p, cfg.padded_vocab)
               and bool(torch.isfinite(logits).all()),
               f"[serve] {tag} prefill: logits not finite of shape "
@@ -1757,7 +1817,8 @@ def phase_serve(torch, held: set) -> dict:
         prefill_ms = ms
         print(f"[serve] {tag} prefill B={b} T={p}: ms={ms:.3f} "
               f"tokens_per_s={b * p / ms * 1e3:.1f} kernel_ms={kern_ms:.3f} "
-              f"kernel_share={kern_ms / ms:.4f} launches={LAYER_LAUNCHES}")
+              f"kernel_share={kern_ms / ms:.4f} launches={LAYER_LAUNCHES} "
+              f"({kernel})")
 
         def decode():
             tok, toks, steps = logits[:, -1].argmax(-1), [], []
@@ -1780,7 +1841,7 @@ def phase_serve(torch, held: set) -> dict:
         tokens = torch.cat([prompts, gen_toks], 1)
         full, ms, kern_ms = drive(
             f"{tag} forward", lambda: registry.forward(
-                model, {"tokens": tokens}, c), LAYER_LAUNCHES)
+                model, {"tokens": tokens}, c), LAYER_LAUNCHES, kernel)
         print(f"[serve] {tag} forward B={b} T={SERVE_CACHE}: ms={ms:.3f} "
               f"kernel_share={kern_ms / ms:.4f}")
         logits_close(f"{tag} decode vs forward at positions "
@@ -1796,7 +1857,7 @@ def phase_serve(torch, held: set) -> dict:
             f"{tag} traced prefill", lambda: _profile_ms(
                 torch, lambda: transformer.prefill(
                     model, batch, c, cache_len=SERVE_CACHE)),
-            LAYER_LAUNCHES)
+            LAYER_LAUNCHES, kernel)
 
         def busy(dev_ms, ms):
             return "not measured" if dev_ms is None else f"{dev_ms / ms:.4f}"
@@ -1813,7 +1874,7 @@ def phase_serve(torch, held: set) -> dict:
               f"ms, calls): {pre_top}")
         return logits[:, -1]
 
-    last = serve(cfg, "bfloat16", BF16_LOGIT_TOL)
+    last = serve(cfg, "bfloat16", BF16_LOGIT_TOL, "flash_attention_wgmma")
     with runtime.force_kernel(False):
         (plain, _), ms, _ = drive("bfloat16 plain-attention prefill",
                                   lambda: transformer.prefill(
@@ -1846,7 +1907,7 @@ def phase_serve(torch, held: set) -> dict:
                                 act_dtype="float32")
     model.float()
     with tdev.full_fp32():
-        serve(cfg32, "float32", F32_LOGIT_TOL)
+        serve(cfg32, "float32", F32_LOGIT_TOL, "flash_attention_f32")
     print(f"[serve] launches over the serving path: {launches}")
     print(f"[serve] kernel shapes on the serving path: {sorted(seen)}")
     unheld = seen - held
@@ -1920,7 +1981,7 @@ def main() -> int:
     sparse_row = phase_sparse_kernels(torch)
     ls_rows = phase_ls_kernels(torch)
     gram_row = phase_gram_kernel(torch)
-    attention_row, attention_held = phase_attention_kernel(torch)
+    attention_rows, attention_held = phase_attention_kernel(torch)
     launches, cg_dense_ms = phase_main_path(torch)
     direct_launches, direct_ref_errors = phase_direct_main(torch)
     sparse_launches, cg_sparse_ms = phase_sparse_main(torch,
@@ -1955,8 +2016,10 @@ def main() -> int:
         for name, meta in LS_KERNEL_RECORD.items()] + [
         {"name": "fused_gram", "route": "cuda", **GRAM_RECORD,
          "launches": s_step_launches["fused_gram"], **gram_row}] + [
-        {"name": "flash_attention", "route": "cuda", **ATTENTION_RECORD,
-         "launches": serve_launches["flash_attention"], **attention_row}]}
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": ATTENTION_REPLACES, "launches": serve_launches[counter],
+         **attention_rows[name]}
+        for name, counter, source, _ in ATTENTION_KERNELS]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

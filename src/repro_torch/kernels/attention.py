@@ -1,4 +1,6 @@
-"""Flash-attention forward kernel: wrapper of ``csrc/attention.cu``.
+"""Flash-attention forward kernels: wrapper of ``csrc/attention_wgmma.cu``
+(bfloat16 and float16, on the tensor cores) and ``csrc/attention.cu``
+(float32).
 
 Port of :mod:`repro.kernels.attention`'s ``flash_attention``: grouped-query
 softmax attention with an online softmax, causal masking with the query
@@ -22,9 +24,12 @@ every tile is skipped.  The plain version
 ``ref.attention``) masks with −inf and returns NaN there.
 On the serving path (Tq ≤ Tk, causal) every row sees at least itself.
 
-Dispatch is by the tensors' device: a CUDA tensor launches the kernel (or
-raises), a CPU tensor takes the plain version.  ``LAUNCHES["flash_attention"]``
-counts the calls that launched the kernel.
+Dispatch is by the tensors' device, then by dtype alone: a CPU tensor takes
+the plain version; a CUDA tensor launches a kernel (or raises), the
+tensor-core kernel for bfloat16 and float16, the float32 kernel for
+float32.  ``LAUNCHES["flash_attention"]`` counts every launch,
+``LAUNCHES["flash_attention_wgmma"]`` and ``LAUNCHES["flash_attention_f32"]``
+those of each kernel.
 """
 from __future__ import annotations
 
@@ -35,31 +40,38 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0,
+            "flash_attention_f32": 0}
 
-_LIB_NAME = "attention"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _STRIDES = ctypes.c_int64 * 4
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# the kernel of each dtype: its library (and C prefix), its counter
+_KERNELS = {torch.float32: ("attention", "flash_attention_f32"),
+            torch.float16: ("attention_wgmma", "flash_attention_wgmma"),
+            torch.bfloat16: ("attention_wgmma", "flash_attention_wgmma")}
 MAX_HEAD_DIM = 256
 TILE = 128
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library(_LIB_NAME)
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _build.library(name)
     if not getattr(lib, "_declared", False):
-        lib.attention_forward.argtypes = [
+        forward = getattr(lib, f"{name}_forward")
+        forward.argtypes = [
             _I, _P, _STRIDES, _P, _STRIDES, _P, _STRIDES, _P,
             _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I,
             _P]
-        lib.attention_forward.restype = _I
-        lib.attention_error_string.argtypes = [_I]
-        lib.attention_error_string.restype = ctypes.c_char_p
+        forward.restype = _I
+        error_string = getattr(lib, f"{name}_error_string")
+        error_string.argtypes = [_I]
+        error_string.restype = ctypes.c_char_p
         lib._declared = True
     return lib
 
@@ -112,14 +124,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hkv, tk = k.shape[1], k.shape[2]
     scale = (d ** -0.5) if scale is None else scale
     o = torch.empty(b, hq, tq, d, dtype=q.dtype, device=q.device)
-    lib = _lib()
+    name, counter = _KERNELS[q.dtype]
+    lib = _lib(name)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.attention_forward(
+    err = getattr(lib, f"{name}_forward")(
         _DTYPES[q.dtype], q.data_ptr(), _STRIDES(*q.stride()), k.data_ptr(),
         _STRIDES(*k.stride()), v.data_ptr(), _STRIDES(*v.stride()),
         o.data_ptr(), b, hq, hkv, tq, tk, d, bq, bk, float(scale),
         int(causal), int(window is not None),
         0 if window is None else int(window), q.device.index, stream)
-    _build.raise_on(err, lib.attention_error_string, "flash_attention")
+    _build.raise_on(err, getattr(lib, f"{name}_error_string"),
+                    "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[counter] += 1
     return o

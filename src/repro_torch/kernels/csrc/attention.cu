@@ -7,8 +7,10 @@
 // causal masking with the query ends aligned to the key ends (q_offset =
 // Tk - Tq), an optional sliding window, fully masked tiles skipped and a zero
 // denominator guarded.  q is (B, Hq, Tq, D), k and v (B, Hkv, Tk, D), any
-// strides; o is a new contiguous (B, Hq, Tq, D) tensor in q's dtype.  bf16,
-// fp16 and float32 inputs are computed in float32, D <= 256.
+// strides; o is a new contiguous (B, Hq, Tq, D) tensor in q's dtype.  The
+// kernel is a template over the input type, computed in float32, D <= 256;
+// only its float32 instantiation is launched: bf16 and fp16 inputs go to the
+// tensor-core kernel of attention_wgmma.cu.
 //
 // The TPU kernel walks a (B, Hq, Tq/bq, Tk/bk) grid whose last axis is
 // sequential, carrying (m, l, acc) in VMEM scratch.  Here one CTA of 256
@@ -37,7 +39,7 @@
 // flops per byte, far above the H100's ~295 (bf16 tensor cores) or 20
 // (float32 outside them) flops a byte for T >= 2048.  This kernel runs on the
 // float32 pipes (67 TFLOP/s), not the tensor cores (989 TFLOP/s bf16), which
-// a later version with wgmma would use.
+// attention_wgmma.cu uses for 16-bit inputs.
 //
 // Determinism: no atomics; each CTA owns its output rows and sums in a fixed
 // order, so reruns are bitwise equal.
@@ -299,7 +301,7 @@ const char* attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// o = attention(q, k, v) for dtype 0 = float32, 1 = float16, 2 = bfloat16;
+// o = attention(q, k, v) for dtype 0 = float32 (the only one taken here);
 // each stride array is (batch, head, position, feature) in elements; o is
 // contiguous.  bq, bk: the reference's tiles (min(128, T)); the window
 // applies when has_window is nonzero.  Returns the CUDA error (0 on success).
@@ -320,16 +322,7 @@ int attention_forward(int dtype, const void* q, const int64_t* q_strides,
       return launch_dim<float>(q, q_strides, k, k_strides, v, v_strides, o,
                                batch, hq, hkv, tq, tk, dim, bq, bk, scale,
                                causal, has_window, window, s);
-    case 1:
-      return launch_dim<__half>(q, q_strides, k, k_strides, v, v_strides, o,
-                                batch, hq, hkv, tq, tk, dim, bq, bk, scale,
-                                causal, has_window, window, s);
-    case 2:
-      return launch_dim<__nv_bfloat16>(q, q_strides, k, k_strides, v,
-                                       v_strides, o, batch, hq, hkv, tq, tk,
-                                       dim, bq, bk, scale, causal, has_window,
-                                       window, s);
-    default:
+    default:   // bfloat16 and float16 go to attention_wgmma.cu
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }

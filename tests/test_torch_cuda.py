@@ -774,6 +774,99 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(
     assert attention.LAUNCHES["flash_attention"] == before + 1
 
 
+def _tensor_core_attention_close(q, k, v, **kw):
+    """Kernel 10 on 16-bit inputs goes to the tensor-core kernel, reruns
+    bitwise and holds the one-rounding gate."""
+    before = dict(attention.LAUNCHES)
+    got = attention.flash_attention(q, k, v, **kw)
+    again = attention.flash_attention(q, k, v, **kw)
+    assert attention.LAUNCHES["flash_attention_wgmma"] \
+        == before["flash_attention_wgmma"] + 2
+    assert torch.equal(got, again)
+    _attention_close(got, _plain_attention_f32(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+def test_tensor_core_attention_on_qwen3_long_rows(cuda_device):
+    """qwen3-1.7b's heads (16 / 8, D = 128) over 2048 keys, bf16."""
+    _tensor_core_attention_close(*_attention_inputs(
+        cuda_device, 1, 16, 8, 2048, 2048, 128, torch.bfloat16, seed=3))
+
+
+@pytest.mark.cuda
+def test_tensor_core_attention_fp16_with_spread_scores(cuda_device):
+    """q scaled by 4 spreads the scores, so many p fall below fp16's
+    normal range unless P is scaled by 2^15 before it is split."""
+    q, k, v = _attention_inputs(cuda_device, 1, 4, 2, 1024, 1024, 128,
+                                torch.float16, seed=4)
+    _tensor_core_attention_close(q * 4, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_attention_zero_pads_the_last_k_step(cuda_device, dtype,
+                                                         causal):
+    """D = 72: the fifth 16-wide step of D is half zero padding."""
+    _tensor_core_attention_close(*_attention_inputs(
+        cuda_device, 2, 4, 2, 256, 256, 72, dtype, seed=5), causal=causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_tensor_core_attention_without_16_byte_rows(cuda_device, dtype):
+    """Rows the kernel cannot copy 16 bytes at a time (D = 36, and a view
+    whose feature stride is not 1) take its 2-byte copy path."""
+    _tensor_core_attention_close(*_attention_inputs(
+        cuda_device, 1, 4, 2, 256, 256, 36, dtype, seed=6))
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(1, 8, 64, 256, generator=g, device=cuda_device)
+    heads = x.to(dtype).transpose(2, 3)         # (1, 8, 256, 64), D stride 256
+    q, k, v = heads[:, :4], heads[:, 4:6], heads[:, 6:]
+    assert q.stride(3) != 1
+    _tensor_core_attention_close(q, k, v, window=100)
+
+
+@pytest.mark.cuda
+def test_attention_dispatch_is_by_dtype(cuda_device):
+    """bf16 and fp16 launch the tensor-core kernel, float32 the float32
+    kernel, each counted on its own and in the total."""
+    q, k, v = _attention_inputs(cuda_device, 1, 4, 2, 256, 256, 64,
+                                torch.float32)
+    for dtype, kernel, other in (
+            (torch.bfloat16, "flash_attention_wgmma", "flash_attention_f32"),
+            (torch.float16, "flash_attention_wgmma", "flash_attention_f32"),
+            (torch.float32, "flash_attention_f32", "flash_attention_wgmma")):
+        before = dict(attention.LAUNCHES)
+        attention.flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
+        assert attention.LAUNCHES[kernel] == before[kernel] + 1
+        assert attention.LAUNCHES[other] == before[other]
+        assert attention.LAUNCHES["flash_attention"] \
+            == before["flash_attention"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_tensor_core_attention_rows_without_a_visible_key(cuda_device,
+                                                          dtype):
+    """The float32 kernel's behaviour for causal Tq > Tk (see
+    test_attention_kernel_rows_without_a_visible_key) on the tensor-core
+    kernel: 0 where every tile is skipped, the live tile's mean of v where
+    a row meets no visible key, one rounding of either."""
+    for tq, tk in ((256, 128), (128, 64)):
+        q, k, v = _attention_inputs(cuda_device, 1, 2, 1, tq, tk, 16, dtype,
+                                    seed=tq)
+        got = attention.flash_attention(q, k, v)
+        dead = tq - tk
+        _attention_close(got[:, :, dead:],
+                         _plain_attention_f32(q, k, v)[:, :, dead:])
+        if tq == 256:
+            assert (got[:, :, :dead] == 0).all()
+        else:
+            want = v.float().mean(dim=2, keepdim=True).expand(1, 2, dead, 16)
+            _attention_close(got[:, :, :dead], want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "tinyllama-1.1b"])
 def test_serving_goes_through_the_attention_kernel(cuda_device, arch):

@@ -25,7 +25,7 @@ from repro_torch.sparse import BSR, ELL, problems
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "attention_probe.py"]
 
 
 def _imported_modules(path: Path):
@@ -160,3 +160,19 @@ def test_cli_exits_nonzero_when_the_residual_is_too_large(capsys):
     assert cli.main(["--n", "64", "--method", "cg", "--maxiter", "1",
                      "--device", "cpu"]) == 1
     assert "residual too large" in capsys.readouterr().out
+
+
+def test_attention_probe_variants_cut_the_kernel_source():
+    """Each of ``attention_probe.py``'s variants of the tensor-core kernel
+    finds the lines it takes out, so an edit of the kernel cannot leave the
+    probe timing the kernel unchanged under another name."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import attention_probe
+    finally:
+        sys.path.remove(str(ROOT))
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+           / "attention_wgmma.cu").read_text()
+    texts = attention_probe.variants(src)
+    assert texts["full"] == src
+    assert len(set(texts.values())) == len(texts) == 7

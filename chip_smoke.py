@@ -7,7 +7,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: the hand-written kernels, from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together), with ptxas's report
+   of each kernel (registers, shared memory, spills);
 3. kernels: each fused Krylov kernel against its plain PyTorch version on
    the card, at n ∈ {16384, 16384 + 130, 2²⁴} (vectors rtol = atol =
    1e-5, dots rtol 1e-4), bitwise-repeatable, timed with CUDA events
@@ -15,11 +16,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    SXM);
 3b. direct kernels, at the direct path's n = 16384 float32, nb = 128: the
    LU and Cholesky panel updates at k ∈ {0, n/2, n − 2nb} (on the change
-   they make: atol 1e-5 · its largest entry, rtol 2.5e-7), and the triangular solve for m ∈ {1, 128} right-hand sides
-   on the lower, upper and transposed triangles of real factors (rtol
-   1e-3, atol 1e-3 · max|x|), each bitwise-repeatable and timed beside its
-   plain version, its bound — max(flops ÷ 67 TFLOP/s float32, bytes ÷
-   3.35 TB/s) — and, for the solve, ``torch.linalg.solve_triangular``;
+   they make: atol 1e-5 · its largest entry, rtol 2.5e-7), and the
+   triangular solve for m ∈ {1, 128} right-hand sides on the lower, upper
+   and transposed triangles of real factors, and for m ∈ {1, 3} on random
+   well-conditioned triangles at n = 20480 (160 block rows, more than the
+   card's SMs) (rtol 1e-3, atol 1e-3 · max|x|), each bitwise-repeatable
+   and timed beside its plain version, its bound — max(flops ÷ 67 TFLOP/s
+   float32, bytes ÷ 3.35 TB/s) — and, for the solve,
+   ``torch.linalg.solve_triangular``; each solve's diagonal inversion and
+   substitution kernel timed apart, and the CUDA kernels of one solve
+   counted by ``torch.profiler`` (the substitution must be one launch);
 4. main path: ``api.solve(..., backend="cuda")`` at n = 16384 float32 for
    cg, pipelined_cg (SPD ``a aᵀ/n + 4I``), bicg, bicgstab, gmres (``a + nI``)
    and cg with jacobi / block_jacobi: converged, true relative residual
@@ -71,7 +77,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    n = 16384, k = 0 (rtol 1e-4, atol 1e-4 · max|C|); each
    bitwise-repeatable, timed beside its plain version, its bound and the
    library call: ``torch.matmul`` (cuBLAS) for the GEMM, and for the QR
-   update three cuBLAS calls (mm, mm, addmm);
+   update three cuBLAS calls (mm, mm, addmm); the GEMM library's SASS
+   (``cuobjdump``) must hold no tensor-core instruction (``HMMA``,
+   ``HGMMA``);
 4e. least-squares main path at m = 32768, n = 8192 float32 (A Gaussian /
    √m, b = A x* + 1e-3 · a Gaussian): ``api.solve(..., method="qr",
    backend="cuda")`` with the QR update and triangular-solve counters
@@ -193,6 +201,7 @@ KERNEL_RECORD = {
         "streams": 3},               # r, u, w read
 }
 NB_DIRECT = 128
+TRSM_WIDE_N = 20480                  # 160 block rows of 128: more than SMs
 DIRECT_TIMED_LAUNCHES = 20
 BACKWARD_ERROR_FACTOR = 10.0
 DIRECT_KERNEL_RECORD = {
@@ -396,7 +405,8 @@ def phase_build() -> None:
         _build.library(name)
         print(f"[build] {name}: {path.relative_to(ROOT)}")
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if "registers" in line or "smem" in line or "spill" in line \
+                    or "entry function" in line:
                 print(f"[build]   {line.strip()}")
     print(f"[build] seconds {time.perf_counter() - t0:.3f}")
 
@@ -607,8 +617,84 @@ def _trsm_cases(torch, n: int):
             "transposed": (chol.T, True, False)}, g
 
 
+def _cuda_kernels(torch, fn) -> list:
+    """Names of the CUDA kernels that one call of ``fn`` launched
+    (``torch.profiler``).  A trace that came back with no device activity
+    at all is a failed trace, not a count: it is taken again, up to three
+    times."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")]
+        if names:
+            return names
+    raise SmokeFailure("torch.profiler recorded no CUDA activity in three "
+                       "traces")
+
+
+def _trsm_row(torch, label: str, t, upper: bool, unit: bool, b) -> dict:
+    """One triangular solve against its plain version (rtol 1e-3, atol
+    1e-3 · max|x|), bitwise-repeatable; the whole solve, the wrapper's
+    diagonal inversion and the substitution kernel timed apart, beside
+    the plain version, the bound and ``torch.linalg.solve_triangular``;
+    the CUDA kernels of one solve counted (the substitution must be one).
+    Returns the record's fields."""
+    from repro_torch.kernels import ref, trsm
+    kernel = trsm.trsm_upper if upper else trsm.trsm_lower
+    plain = ref.trsm_upper if upper else ref.trsm_lower
+    n, m = t.shape[0], (1 if b.ndim == 1 else b.shape[1])
+    got = kernel(t, b, unit_diagonal=unit)
+    again = kernel(t, b, unit_diagonal=unit)
+    want = plain(t, b, unit_diagonal=unit)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"trsm {label}: reruns differ")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(bool(torch.isfinite(got).all()) and torch.allclose(
+        got, want, rtol=1e-3, atol=1e-3 * scale),
+        f"trsm {label}: kernel and plain version differ (max abs err {err}, "
+        f"max |x| {scale})")
+    del got, again, want
+    names = _cuda_kernels(torch, lambda: kernel(t, b, unit_diagonal=unit))
+    subst = sum(1 for name in names if "blocked_substitution" in name)
+    check(subst == 1, f"trsm {label}: {subst} launches of the substitution "
+                      f"kernel in one solve (kernels: {names})")
+    ms = time_ms(torch, lambda: kernel(t, b, unit_diagonal=unit),
+                 DIRECT_TIMED_LAUNCHES)
+    linv = trsm.diag_inverses(t, rev=upper, unit_diagonal=unit)
+    inversion_ms = time_ms(torch, lambda: trsm.diag_inverses(
+        t, rev=upper, unit_diagonal=unit), DIRECT_TIMED_LAUNCHES)
+    substitution_ms = time_ms(torch, lambda: trsm.substitute(
+        t, b, linv, rev=upper), DIRECT_TIMED_LAUNCHES)
+    plain_ms = time_ms(torch, lambda: plain(t, b, unit_diagonal=unit),
+                       DIRECT_TIMED_LAUNCHES)
+    b2 = b[:, None] if m == 1 else b
+    library_ms = time_ms(torch, lambda: torch.linalg.solve_triangular(
+        t, b2, upper=upper, unitriangular=unit), DIRECT_TIMED_LAUNCHES)
+    flops = float(n) * n * m
+    nbytes = 4.0 * (n * (n + 1) / 2 + 2 * n * m)
+    bound_ms, bound_by = _bound(flops, nbytes)
+    print(f"[direct-kernel] trsm {label} max_abs_err={err:.3e} "
+          f"max_abs_x={scale:.3e} bitwise_rerun=True ms={ms:.6f} "
+          f"inversion_ms={inversion_ms:.6f} "
+          f"substitution_ms={substitution_ms:.6f} "
+          f"inversion_share={inversion_ms / ms:.4f} "
+          f"cuda_kernels_a_solve={len(names)} substitution_launches={subst} "
+          f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} "
+          f"bound_by={bound_by} library_ms={library_ms:.6f} "
+          "(torch.linalg.solve_triangular)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def phase_direct_kernels(torch) -> dict:
-    from repro_torch.kernels import factor_fused, ref, trsm
+    from repro_torch.kernels import factor_fused, ref
     n, nb = N_MAIN, NB_DIRECT
     record = {}
     for kind in ("lu_panel_update", "cholesky_panel_update"):
@@ -647,45 +733,34 @@ def phase_direct_kernels(torch) -> dict:
         del base
     cases, g = _trsm_cases(torch, n)
     for mode, (t, upper, unit) in cases.items():
-        kernel = trsm.trsm_upper if upper else trsm.trsm_lower
-        plain = ref.trsm_upper if upper else ref.trsm_lower
         for m in (1, 128):
             b = torch.randn(*((n,) if m == 1 else (n, m)), generator=g,
                             device="cuda")
-            got = kernel(t, b, unit_diagonal=unit)
-            again = kernel(t, b, unit_diagonal=unit)
-            want = plain(t, b, unit_diagonal=unit)
-            torch.cuda.synchronize()
-            check(torch.equal(got, again), f"trsm {mode} m={m}: reruns "
-                                           "differ")
-            err = float((got - want).abs().max())
-            scale = float(want.abs().max())
-            check(bool(torch.isfinite(got).all()) and torch.allclose(
-                got, want, rtol=1e-3, atol=1e-3 * scale),
-                f"trsm {mode} m={m}: kernel and plain version differ (max "
-                f"abs err {err}, max |x| {scale})")
-            ms = time_ms(torch, lambda: kernel(t, b, unit_diagonal=unit),
-                         DIRECT_TIMED_LAUNCHES)
-            plain_ms = time_ms(torch, lambda: plain(t, b, unit_diagonal=unit),
-                               DIRECT_TIMED_LAUNCHES)
-            b2 = b[:, None] if m == 1 else b
-            library_ms = time_ms(torch, lambda: torch.linalg.solve_triangular(
-                t, b2, upper=upper, unitriangular=unit),
-                DIRECT_TIMED_LAUNCHES)
-            flops = float(n) * n * m
-            nbytes = 4.0 * (n * (n + 1) / 2 + 2 * n * m)
-            bound_ms, bound_by = _bound(flops, nbytes)
-            print(f"[direct-kernel] trsm {mode} unit={unit} n={n} m={m} "
-                  f"max_abs_err={err:.3e} max_abs_x={scale:.3e} "
-                  f"bitwise_rerun=True ms={ms:.6f} plain_ms={plain_ms:.6f} "
-                  f"bound_ms={bound_ms:.6f} bound_by={bound_by} "
-                  f"library_ms={library_ms:.6f} "
-                  "(torch.linalg.solve_triangular)")
+            row = _trsm_row(torch, f"{mode} unit={unit} n={n} m={m}", t,
+                            upper, unit, b)
             if mode == "lower" and m == 1:   # the record: LU's first solve
-                record["trsm"] = {"max_abs_err": err, "ms": ms,
-                                  "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                  "bound_by": bound_by,
-                                  "library_ms": library_ms}
+                record["trsm"] = row
+    del cases
+    # more block rows (160) than SMs: units wait on units that CTAs taken
+    # later hold; well-conditioned random triangles
+    n_wide = TRSM_WIDE_N
+    g = torch.Generator(device="cuda").manual_seed(n_wide)
+    tri = torch.randn(n_wide, n_wide, generator=g, device="cuda") \
+        * (0.5 / n_wide ** 0.5)
+    tri.diagonal().add_(2.0)
+    low = torch.tril(tri)
+    del tri
+    for mode, t, upper in (("lower", low, False),
+                           ("upper", torch.triu(low.T.contiguous()), True),
+                           ("transposed", low.T, True)):
+        for m in (1, 3):
+            b = torch.randn(*((n_wide,) if m == 1 else (n_wide, m)),
+                            generator=g, device="cuda")
+            _trsm_row(torch, f"{mode} unit=False n={n_wide} m={m}", t, upper,
+                      False, b)
+        del t
+    del low
+    torch.cuda.empty_cache()
     return record
 
 
@@ -1132,6 +1207,35 @@ def _qr_update_cost(m: int, n: int, nb: int, k: int) -> tuple[float, float]:
             4.0 * (2 * r * c + r * nb + nb * nb))
 
 
+def _gemm_sass() -> None:
+    """Kernel 7 stays on the float32 pipes: the count of tensor-core
+    instructions (``HMMA``, ``HGMMA``) in its library's SASS
+    (``cuobjdump``) must be 0; its ``FFMA`` count is printed beside."""
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    check(cuobjdump.exists(), f"no cuobjdump at {cuobjdump}: kernel 7's "
+                              "SASS cannot be checked")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build.build("gemm"))],
+                          capture_output=True, text=True)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
+    lines = sass.stdout.splitlines()
+    tensor = sum(1 for line in lines if "HMMA" in line or "HGMMA" in line)
+    print(f"[ls-kernel] gemm.cu SASS: HMMA/HGMMA instructions {tensor}")
+    counts, name = {}, None        # FFMA and local loads / stores a kernel
+    for line in lines:
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += "FFMA" in line
+            counts[name][1] += "LDL" in line or "STL" in line
+    for name, (ffma, local) in counts.items():
+        print(f"[ls-kernel]   {name[:70]}: FFMA {ffma}, LDL/STL {local}")
+    check(tensor == 0, f"kernel 7's SASS holds {tensor} tensor-core "
+                       "instructions")
+
+
 def phase_ls_kernels(torch) -> dict:
     from repro_torch.kernels import gemm, qr_fused, ref
     m, n, nb = LS_M, LS_N, NB_LS
@@ -1181,6 +1285,7 @@ def phase_ls_kernels(torch) -> dict:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms}
         del a, w, win
+    _gemm_sass()
     # the GEMM at the unfused QR's three products at k = 0 (V is the
     # window's V, the first panel of the matrix) and at the unfused LU's
     # trailing update at n = 16384, k = 0 (views of one matrix)

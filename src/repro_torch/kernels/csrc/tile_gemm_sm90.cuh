@@ -1,0 +1,415 @@
+// The float32 GEMM mainloop of gemm.cu (kernel 7) for Hopper: C = A B on
+// strided views, for any M, N, K, in full float32 on the float32 pipes (no
+// TF32, no tensor cores), with a split of K that stays deterministic.
+//
+// A block of 256 threads owns a 128 x 128 tile of C; each thread 8 x 8 of
+// it, as 2 x 2 fragments of 4 x 4 (rows 4ty .. 4ty + 3 and 64 + the same,
+// columns 4tx .. and 64 + ..), so that a step of depth reads its operands
+// with 16-byte shared loads: 4 LDS.128 for 64 FFMA.  The block walks its
+// range of K in slices of 32 through a 3-stage cp.async ring (32 KB a
+// stage, two blocks an SM), one barrier a slice.
+//
+// Both operands are held as an (MN x K) matrix: A(i, q), and B read as
+// B^T(j, q).  Each is staged in the layout of its memory, chosen per launch
+// by which of its indices is contiguous (a template argument):
+//   MN-major (contiguous along i or j: QR's V^T read in place, B row-major)
+//     S[q][i], rows of 128 floats; a step loads its 4 values as float4;
+//   K-major (contiguous along q: a row-major block of A, a transposed B)
+//     S[i][q], rows of 32 floats whose 16-byte chunks are XOR-swizzled by
+//     (i / 4) mod 8, so that the 8 threads of a quarter-warp reading 8
+//     different rows at one depth hit 8 different bank groups; a thread
+//     loads 4 depths of one row as a float4.
+// Either way the global copies are 16 bytes wide.  An operand whose base
+// is not 16-byte aligned, whose other stride is not a multiple of 4, or
+// which has no unit stride, is copied 4 bytes at a time by the same kernel;
+// ragged edges are zero-filled by the copies' source size.
+//
+// The sums run in a fixed order (ascending q within a split), without
+// atomics, so reruns are bitwise equal.  Few output tiles with a long K
+// (QR's V^T A: 63 tiles at n = 8192) would leave the card idle, so K is
+// split into as many parts as the resident blocks allow: split z writes a
+// partial tile to a scratch buffer, and a second launch adds the partials
+// in the order z = 0, 1, ... into C.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace sm90 {
+
+constexpr int kBM = 128;            // output tile rows (and columns)
+constexpr int kBK = 32;             // depth of one staged slice
+constexpr int kStages = 3;
+constexpr int kThreads = 256;       // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kBlocksPerSM = 2;
+constexpr int kOperand = kBM * kBK; // floats of one operand's slice
+constexpr int kMinSplitDepth = 512; // least K a split keeps
+constexpr int kSumThreads = 256;
+constexpr size_t kSmemBytes = sizeof(float) * kStages * 2 * kOperand;
+
+// One operand as an (MN x K) matrix: element (r, q) at p[r * ms + q * ks];
+// vec: copyable 16 bytes at a time in its layout.
+struct Operand {
+  const float* p;
+  int64_t ms, ks;
+  int rows, vec;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The swizzled float offset of (row r, depth q) in a K-major slice.
+__device__ __forceinline__ int kmajor_at(int r, int q) {
+  return r * kBK + 4 * ((q >> 2) ^ ((r >> 2) & 7)) + (q & 3);
+}
+
+// Starts the copies of one operand's slices.  It keeps only the thread's
+// first source (slice 0); the shared offsets, the thread's place in the
+// slice and the strides are recomputed from threadIdx and the kernel's
+// parameters at each slice, which leaves the mainloop's registers to the
+// fragments.  A copy then costs one pointer add.
+//   16-byte copies (4 a thread): K-major, rows tid / 8 + 32u at depths
+//   4 (tid % 8); MN-major, depths tid / 32 + 8u at rows 4 (tid % 32).
+//   4-byte copies (16 a thread): K-major, rows tid / 32 + 8u at depth
+//   tid % 32; MN-major, depths tid / 128 + 2u at row tid % 128.
+template <bool kKMajor>
+struct Loader {
+  const float* src;   // this thread's first copy of slice 0
+
+  __device__ __forceinline__ static int lane_r(int vec) {
+    const int tid = threadIdx.x;
+    return vec ? (kKMajor ? tid >> 3 : 4 * (tid & 31))
+               : (kKMajor ? tid >> 5 : tid & 127);
+  }
+  __device__ __forceinline__ static int lane_q(int vec) {
+    const int tid = threadIdx.x;
+    return vec ? (kKMajor ? 4 * (tid & 7) : tid >> 5)
+               : (kKMajor ? tid & 31 : tid >> 7);
+  }
+
+  __device__ __forceinline__ Loader(const Operand& op, int r0, int q_lo)
+      : src(op.p + static_cast<int64_t>(r0 + lane_r(op.vec)) * op.ms +
+            static_cast<int64_t>(q_lo + lane_q(op.vec)) * op.ks) {}
+
+  // Copy slice `sl` (depths q0 .. q0 + 31 of a split ending at q_hi) of
+  // the operand's rows r0 .. r0 + 127 into s; what lies past the operand's
+  // rows or the split is zero-filled.
+  __device__ __forceinline__ void copy(const Operand& op, float* s, int r0,
+                                       int sl, int q0, int q_hi) const {
+    const float* p = src + sl * (kBK * op.ks);
+    const uint32_t base = smem_addr(s);
+    const int lr = lane_r(op.vec), lq = lane_q(op.vec);
+    const int rows_rem = op.rows - r0 - lr;  // rows from this copy's on
+    const int q_left = q_hi - q0 - lq;       // depths from this copy's on
+    if (op.vec) {
+      const int dst = kKMajor ? kmajor_at(lr, lq) : 4 * threadIdx.x;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        int bytes;
+        uint32_t d;
+        const float* from;
+        if (kKMajor) {   // +32 rows keeps the swizzle
+          bytes = 32 * u < rows_rem ? 4 * max(0, min(4, q_left)) : 0;
+          d = base + 4 * (dst + 32 * u * kBK);
+          from = p + u * (32 * op.ms);
+        } else {
+          bytes = 8 * u < q_left ? 4 * max(0, min(4, rows_rem)) : 0;
+          d = base + 4 * (dst + 8 * u * kBM);
+          from = p + u * (8 * op.ks);
+        }
+        cp_async16(d, bytes ? from : op.p, bytes);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        bool ok;
+        uint32_t d;
+        const float* from;
+        if (kKMajor) {
+          ok = 8 * u < rows_rem && q_left > 0;
+          d = base + 4 * kmajor_at(lr + 8 * u, lq);
+          from = p + u * (8 * op.ms);
+        } else {
+          ok = 2 * u < q_left && rows_rem > 0;
+          d = base + 4 * (threadIdx.x + 2 * u * kBM);
+          from = p + u * (2 * op.ks);
+        }
+        cp_async4(d, ok ? from : op.p, ok ? 4 : 0);
+      }
+    }
+  }
+};
+
+// The 8 values (rows 4t .. 4t + 3, 64 + 4t .. 64 + 4t + 3 of the tile) of
+// an MN-major slice at depth q.
+__device__ __forceinline__ void mn_frag(const float* s, int q, int t,
+                                        float (&v)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(s + q * kBM + 4 * t);
+  const float4 hi = *reinterpret_cast<const float4*>(s + q * kBM + 64 +
+                                                     4 * t);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+// Depths 4 qc .. 4 qc + 3 of row i (i = 4t + e or 64 + 4t + e) of a K-major
+// slice; the swizzle of those rows is t mod 8.
+__device__ __forceinline__ float4 k_frag(const float* s, int i, int qc,
+                                         int t) {
+  return *reinterpret_cast<const float4*>(s + i * kBK +
+                                          4 * (qc ^ (t & 7)));
+}
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ int frag_row(int t, int e) {
+  return e < 4 ? 4 * t + e : 64 + 4 * t + (e - 4);
+}
+
+// acc[r][c] += sum over the slice's 32 depths of A(r) B(c), in depth order.
+// A K-major operand gives 4 depths of a row a load, so its fragment is
+// loaded 4 depths at a time.
+template <bool kAK, bool kBKm>
+__device__ __forceinline__ void slice_product(const float* as,
+                                              const float* bs,
+                                              float (&acc)[8][8], int tx,
+                                              int ty) {
+#pragma unroll
+  for (int qc = 0; qc < kBK / 4; ++qc) {
+    float4 ak[8];
+    if constexpr (kAK) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ak[e] = k_frag(as, frag_row(ty, e), qc, ty);
+    }
+    if constexpr (kAK && kBKm) {
+      // both K-major: B a half (4 columns) at a time keeps 48 values live
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float4 bk[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          bk[e] = k_frag(bs, frag_row(tx, 4 * half + e), qc, tx);
+#pragma unroll
+        for (int d = 0; d < 4; ++d)
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[r][4 * half + c] = fmaf(comp(ak[r], d), comp(bk[c], d),
+                                          acc[r][4 * half + c]);
+      }
+    } else {
+      float4 bk[8];
+      if constexpr (kBKm) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          bk[e] = k_frag(bs, frag_row(tx, e), qc, tx);
+      }
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        float a[8], b[8];
+        if constexpr (kAK) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) a[e] = comp(ak[e], d);
+        } else {
+          mn_frag(as, 4 * qc + d, ty, a);
+        }
+        if constexpr (kBKm) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) b[e] = comp(bk[e], d);
+        } else {
+          mn_frag(bs, 4 * qc + d, tx, b);
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+      }
+    }
+  }
+}
+
+// C[i, j] = sum over q in [z kc, min(K, (z+1) kc)) of A(i, q) B^T(j, q), for
+// i < M, j < N, with z = blockIdx.z and C at c + z * zs (row stride ldc).
+template <bool kAK, bool kBKm>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+sgemm_kernel(Operand A, Operand B, float* __restrict__ c, int64_t ldc,
+             int64_t zs, int K, int kc, int vec_c) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBM;
+  const int q_lo = blockIdx.z * kc;
+  const int q_hi = min(K, q_lo + kc);
+  const int nsl = (q_hi - q_lo + kBK - 1) / kBK;
+  c += blockIdx.z * zs;
+
+  const Loader<kAK> la(A, i0, q_lo);
+  const Loader<kBKm> lb(B, j0, q_lo);
+  auto stage = [&](int sl) {
+    float* s = smem + (sl % kStages) * 2 * kOperand;
+    const int q0 = q_lo + sl * kBK;
+    la.copy(A, s, i0, sl, q0, q_hi);
+    lb.copy(B, s + kOperand, j0, sl, q0, q_hi);
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int s = 0; s < 8; ++s) acc[r][s] = 0.f;
+
+#pragma unroll
+  for (int sl = 0; sl < kStages - 1; ++sl) {
+    if (sl < nsl) stage(sl);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int sl = 0; sl < nsl; ++sl) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // slice sl visible to all; slice sl - 1's slot free
+    if (sl + kStages - 1 < nsl) stage(sl + kStages - 1);
+    cp_async_commit();
+    const float* s = smem + (sl % kStages) * 2 * kOperand;
+    slice_product<kAK, kBKm>(s, s + kOperand, acc, tx, ty);
+  }
+  cp_async_wait<0>();
+
+  const int M = A.rows, N = B.rows;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int i = i0 + frag_row(ty, r);
+    if (i >= M) continue;
+    float* o = c + static_cast<int64_t>(i) * ldc;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = j0 + frag_row(tx, 4 * h);
+      if (vec_c && j + 3 < N) {
+        *reinterpret_cast<float4*>(o + j) =
+            float4{acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
+                   acc[r][4 * h + 3]};
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j + e < N) o[j + e] = acc[r][4 * h + e];
+      }
+    }
+  }
+}
+
+// C[i, j] = the sum over z = 0, 1, ..., nz - 1, in that order, of the
+// partial tiles part[z * M * N + i * N + j].
+__global__ void __launch_bounds__(kSumThreads)
+split_sum_kernel(const float* __restrict__ part, int nz, float* c,
+                 int64_t ldc, int M, int N) {
+  const int64_t total = static_cast<int64_t>(M) * N;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       e < total; e += step) {
+    float sum = part[e];
+    for (int z = 1; z < nz; ++z) sum += part[z * total + e];
+    c[(e / N) * ldc + e % N] = sum;
+  }
+}
+
+// How many parts K is split into for an (M x K)(K x N) product on `sms`
+// SMs: one when the output tiles fill the resident blocks, else as many as
+// the resident blocks hold whole (one wave), each at least kMinSplitDepth
+// deep.  The wrapper sizes the scratch by it.
+inline int splits_for(int64_t M, int64_t N, int64_t K, int sms) {
+  const int64_t tiles = ((M + kBM - 1) / kBM) * ((N + kBM - 1) / kBM);
+  const int64_t resident = static_cast<int64_t>(sms) * kBlocksPerSM;
+  if (tiles <= 0 || tiles >= resident) return 1;
+  int64_t s = resident / tiles;
+  if (s > K / kMinSplitDepth) s = K / kMinSplitDepth;
+  return s < 1 ? 1 : static_cast<int>(s);
+}
+
+// The operand (r, q) at p[r * ms + q * ks] with `rows` rows: K-major when q
+// is its unit stride (or, with none, the smaller one), 16-byte copies when
+// the base is 16-byte aligned and the other stride a multiple of 4.
+inline Operand make_operand(const float* p, int64_t ms, int64_t ks, int rows,
+                            bool& k_major) {
+  const int64_t ams = ms < 0 ? -ms : ms, aks = ks < 0 ? -ks : ks;
+  k_major = ks == 1 || (ms != 1 && aks < ams);
+  const int64_t other = k_major ? ms : ks;
+  const int vec = (k_major ? ks == 1 : ms == 1) && other % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  return Operand{p, ms, ks, rows, vec};
+}
+
+template <bool kAK, bool kBKm>
+int launch(const Operand& A, const Operand& B, float* c, int64_t ldc,
+           int64_t zs, int K, int kc, int nz, int vec_c, cudaStream_t s) {
+  auto kernel = sgemm_kernel<kAK, kBKm>;
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes)));
+  if (err) return err;
+  const dim3 grid((B.rows + kBM - 1) / kBM, (A.rows + kBM - 1) / kBM, nz);
+  kernel<<<grid, kThreads, kSmemBytes, s>>>(A, B, c, ldc, zs, K, kc, vec_c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C = A B for A(i, q) = a[i * a_rs + q * a_cs] (M x K), B(q, j) = b[q * b_rs
+// + j * b_cs] (K x N) and the row-major (M, N) c; `scratch` holds splits *
+// M * N floats when splits > 1.  Returns the CUDA error (0 on success).
+inline int gemm(const float* a, int64_t a_rs, int64_t a_cs, const float* b,
+                int64_t b_rs, int64_t b_cs, float* c, int M, int N, int K,
+                float* scratch, int splits, cudaStream_t s) {
+  if (M <= 0 || N <= 0 || K <= 0 || splits < 1 ||
+      (M + kBM - 1) / kBM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool a_k, b_k;
+  const Operand A = make_operand(a, a_rs, a_cs, M, a_k);
+  const Operand B = make_operand(b, b_cs, b_rs, N, b_k);   // B^T(j, q)
+  int kc = (K + splits - 1) / splits;
+  kc = (kc + kBK - 1) / kBK * kBK;
+  const int nz = (K + kc - 1) / kc;       // every split non-empty
+  const int64_t total = static_cast<int64_t>(M) * N;
+  if (nz > 1 && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* out = nz == 1 ? c : scratch;
+  const int vec_c = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int64_t zs = nz == 1 ? 0 : total;
+  int err;
+  if (a_k)
+    err = b_k ? launch<true, true>(A, B, out, N, zs, K, kc, nz, vec_c, s)
+              : launch<true, false>(A, B, out, N, zs, K, kc, nz, vec_c, s);
+  else
+    err = b_k ? launch<false, true>(A, B, out, N, zs, K, kc, nz, vec_c, s)
+              : launch<false, false>(A, B, out, N, zs, K, kc, nz, vec_c, s);
+  if (err || nz == 1) return err;
+  int64_t blocks = (total + kSumThreads - 1) / kSumThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  split_sum_kernel<<<static_cast<int>(blocks), kSumThreads, 0, s>>>(
+      scratch, nz, c, N, M, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90

@@ -44,7 +44,7 @@ def _lib() -> ctypes.CDLL:
                                     _I64, _I64, _P, ctypes.c_int,
                                     ctypes.c_int, _P]
         lib.gemm_matmul.restype = ctypes.c_int
-        lib.gemm_splits.argtypes = [_I64, _I64, _I64]
+        lib.gemm_splits.argtypes = [_I64, _I64, _I64, ctypes.c_int]
         lib.gemm_splits.restype = ctypes.c_int
         lib.gemm_error_string.argtypes = [ctypes.c_int]
         lib.gemm_error_string.restype = ctypes.c_char_p
@@ -77,16 +77,18 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if m == 0 or n == 0 or k == 0:
         return torch.zeros(m, n, dtype=a.dtype, device=a.device)
     lib = _lib()
-    c = torch.empty(m, n, dtype=a.dtype, device=a.device)
-    splits = lib.gemm_splits(m, n, k)
-    scratch = torch.empty(splits * m * n if splits > 1 else 0,
-                          dtype=a.dtype, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = lib.gemm_matmul(a.data_ptr(), a.stride(0), a.stride(1),
-                          b.data_ptr(), b.stride(0), b.stride(1),
-                          c.data_ptr(), m, n, k,
-                          scratch.data_ptr() if splits > 1 else None, splits,
-                          a.device.index, stream)
+    dev = a.device
+    c = torch.empty(m, n, dtype=a.dtype, device=dev)
+    splits = lib.gemm_splits(m, n, k, dev.index)
+    if splits < 1:
+        raise RuntimeError("matmul: the device's SM count could not be read")
+    scratch = torch.empty(splits * m * n, dtype=a.dtype, device=dev) \
+        if splits > 1 else None
+    err = lib.gemm_matmul(a.data_ptr(), *a.stride(), b.data_ptr(),
+                          *b.stride(), c.data_ptr(), m, n, k,
+                          None if scratch is None else scratch.data_ptr(),
+                          splits, dev.index,
+                          torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on(err, lib.gemm_error_string, "matmul")
     LAUNCHES["matmul"] += 1
     return c

@@ -4,8 +4,9 @@ Port of :mod:`repro.kernels.trsm`'s ``trsm_lower`` / ``trsm_upper`` and
 their ``_auto`` forms: X with T X = B for a triangular (n, n) ``T``, any n,
 any number of right-hand-side columns and a 1-D ``b``.  As in the
 reference, the diagonal sub-blocks are inverted outside the kernel, here by
-one batched ``torch.linalg.solve_triangular``; the kernel then runs the
-blocked substitution with those inverses.
+one batched ``torch.linalg.solve_triangular`` (:func:`diag_inverses`); the
+kernel then runs the blocked substitution with those inverses, the whole
+solve in one launch (:func:`substitute`).
 
 ``T`` is either C-contiguous or the transpose of a C-contiguous matrix
 (``l.T``, as in Cholesky's second solve); the kernel reads both layouts in
@@ -26,6 +27,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 LAUNCHES = {"trsm": 0}
+BLOCK_ROWS = 128     # the kernel's block rows: the inverted blocks' size
 
 _LIB_NAME = "trsm"
 _P = ctypes.c_void_p
@@ -40,12 +42,17 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_declared", False):
         lib.trsm_solve.argtypes = [_P, ctypes.c_int64, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_int, _P, _P, _P,
-                                   ctypes.c_int, ctypes.c_int, _P]
+                                   ctypes.c_int, _P, ctypes.c_int, _P]
         lib.trsm_solve.restype = ctypes.c_int
         lib.trsm_error_string.argtypes = [ctypes.c_int]
         lib.trsm_error_string.restype = ctypes.c_char_p
         lib.trsm_block_rows.restype = ctypes.c_int
-        lib.block_rows = lib.trsm_block_rows()
+        lib.trsm_workspace_ints.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.trsm_workspace_ints.restype = ctypes.c_int64
+        if lib.trsm_block_rows() != BLOCK_ROWS:
+            raise RuntimeError(f"csrc/trsm.cu solves blocks of "
+                               f"{lib.trsm_block_rows()} rows, the wrapper "
+                               f"inverts blocks of {BLOCK_ROWS}")
         lib._declared = True
     return lib
 
@@ -70,11 +77,13 @@ def _check(t: torch.Tensor, b: torch.Tensor) -> None:
                          "of a contiguous matrix")
 
 
-def _diag_inverses(t: torch.Tensor, rev: bool, unit_diagonal: bool,
-                   sb: int) -> torch.Tensor:
-    """(ceil(n/sb), sb, sb) inverses of the diagonal blocks of the logical
-    lower triangle L' (L'[p, q] = t[n−1−p, n−1−q] when ``rev``); the last
-    block is padded with the identity."""
+def diag_inverses(t: torch.Tensor, *, rev: bool,
+                  unit_diagonal: bool) -> torch.Tensor:
+    """(ceil(n/128), 128, 128) inverses of the diagonal blocks of the
+    logical lower triangle L' of ``t`` (L'[p, q] = t[n−1−p, n−1−q] when
+    ``rev``); the last block is padded with the identity.  Plain PyTorch
+    on any device."""
+    sb = BLOCK_ROWS
     n = t.shape[0]
     nblk = -(-n // sb)
     idx = torch.arange(nblk * sb, device=t.device)
@@ -88,22 +97,34 @@ def _diag_inverses(t: torch.Tensor, rev: bool, unit_diagonal: bool,
         unitriangular=unit_diagonal).contiguous()
 
 
-def _solve(t: torch.Tensor, b: torch.Tensor, *, rev: bool,
-           unit_diagonal: bool) -> torch.Tensor:
+def substitute(t: torch.Tensor, b: torch.Tensor, linv: torch.Tensor, *,
+               rev: bool) -> torch.Tensor:
+    """The kernel's launch: X with L' X = B given ``linv`` from
+    :func:`diag_inverses` (CUDA tensors, shapes checked by the callers)."""
+    if not _build.on_cuda(t):
+        raise ValueError("substitute launches the CUDA kernel: the "
+                         "triangle must be a CUDA tensor")
     lib = _lib()
     n = t.shape[0]
     trans = not t.is_contiguous()
     stored = t.T if trans else t               # C-contiguous storage
-    linv = _diag_inverses(t, rev, unit_diagonal, lib.block_rows)
-    w = b.reshape(n, -1).clone(memory_format=torch.contiguous_format)
-    x = torch.empty_like(w)
+    rhs = b.reshape(n, -1).contiguous()        # read only
+    x = torch.empty_like(rhs)
+    work = torch.zeros(lib.trsm_workspace_ints(n, rhs.shape[1]),
+                       dtype=torch.int32, device=t.device)
     stream = torch.cuda.current_stream(t.device).cuda_stream
     err = lib.trsm_solve(stored.data_ptr(), n, n, int(rev), int(trans),
-                         linv.data_ptr(), w.data_ptr(), x.data_ptr(),
-                         w.shape[1], t.device.index, stream)
+                         linv.data_ptr(), rhs.data_ptr(), x.data_ptr(),
+                         rhs.shape[1], work.data_ptr(), t.device.index, stream)
     _build.raise_on(err, lib.trsm_error_string, "trsm")
     LAUNCHES["trsm"] += 1
     return x.reshape(b.shape)
+
+
+def _solve(t: torch.Tensor, b: torch.Tensor, *, rev: bool,
+           unit_diagonal: bool) -> torch.Tensor:
+    linv = diag_inverses(t, rev=rev, unit_diagonal=unit_diagonal)
+    return substitute(t, b, linv, rev=rev)
 
 
 def trsm_lower(l: torch.Tensor, b: torch.Tensor, *,

@@ -98,7 +98,10 @@ PANEL_CASES = [(128, 32, 0), (128, 32, 64), (128, 32, 96), (256, 64, 64),
                (16384, 128, 0), (16384, 128, 8192), (16384, 128, 16128)]
 # (n, m): the reference's trsm test shapes, m = 1 and a 1-D b, n = 16384
 TRSM_CASES = [(128, 128), (256, 128), (256, 64), (100, 1), (130, 7),
-              (100, 0), (16384, 0), (16384, 128)]
+              (100, 0), (16384, 0), (16384, 128),
+              # more block rows (160) than the card has SMs; a ragged n
+              # (4-byte copies); m = 33 crosses a 32-column slice
+              (20480, 0), (20480, 3), (16383, 0), (16383, 33), (1000, 33)]
 
 
 def _panel_inputs(n, nb, k, spd, dev):
@@ -175,6 +178,25 @@ def test_trsm_kernel_matches_plain_version(cuda_device, n, m, unit, mode):
 
 
 @pytest.mark.cuda
+def test_trsm_solves_on_two_streams_do_not_interfere(cuda_device):
+    """Each solve keeps its ready flags and ticket in a workspace of its
+    own, so two solves in flight on two streams give bitwise what each
+    gives alone."""
+    t, g = _triangle(4096, False, cuda_device)
+    b1 = torch.randn(4096, generator=g, device=cuda_device)
+    b2 = torch.randn(4096, 5, generator=g, device=cuda_device)
+    want1, want2 = trsm.trsm_lower(t, b1), trsm.trsm_lower(t, b2)
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(streams[0]):
+        got1 = trsm.trsm_lower(t, b1)
+    with torch.cuda.stream(streams[1]):
+        got2 = trsm.trsm_lower(t, b2)
+    torch.cuda.synchronize()
+    assert torch.equal(got1, want1) and torch.equal(got2, want2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("method,kernel", [
     ("lu", "lu_panel_update"), ("cholesky", "cholesky_panel_update")])
 def test_direct_solve_goes_through_the_kernels(cuda_device, method, kernel):
@@ -234,7 +256,13 @@ def test_unfused_kernel_route_matches_the_plain_route(cuda_device, method):
 GEMM_CASES = [(1, 1, 1, "plain"), (130, 70, 33, "plain"),
               (129, 257, 200, "views"), (128, 300, 20000, "transposed"),
               (128, 8064, 32768, "transposed"), (128, 8064, 128, "plain"),
-              (32768, 8064, 128, "plain"), (16256, 16256, 128, "views")]
+              (32768, 8064, 128, "plain"), (16256, 16256, 128, "views"),
+              # A with column stride 2; a transposed B; K = 1; K not a
+              # multiple of the 32-deep slice; base pointers that are not
+              # 16-byte aligned; M = 128 with K = 65536 (a deep split)
+              (130, 300, 100, "strided"), (200, 136, 96, "transposed b"),
+              (64, 96, 1, "plain"), (300, 260, 77, "plain"),
+              (131, 133, 45, "unaligned"), (128, 256, 65536, "transposed")]
 
 
 def _gemm_operands(m, n, k, layout, dev):
@@ -243,10 +271,20 @@ def _gemm_operands(m, n, k, layout, dev):
         a = torch.randn(k, m, generator=g, device=dev).T
     elif layout == "views":               # blocks of larger matrices
         a = torch.randn(m + 3, k + 5, generator=g, device=dev)[3:, 5:]
+    elif layout == "strided":             # every other column
+        a = torch.randn(m, 2 * k, generator=g, device=dev)[:, ::2]
+    elif layout == "unaligned":           # 4 bytes past a 16-byte boundary
+        a = torch.randn(m * k + 1, generator=g, device=dev)[1:].view(m, k)
     else:
         a = torch.randn(m, k, generator=g, device=dev)
-    b = torch.randn(k + 2, n + 4, generator=g, device=dev)[2:, :n] \
-        if layout == "views" else torch.randn(k, n, generator=g, device=dev)
+    if layout == "views":
+        b = torch.randn(k + 2, n + 4, generator=g, device=dev)[2:, :n]
+    elif layout == "transposed b":
+        b = torch.randn(n, k, generator=g, device=dev).T
+    elif layout == "unaligned":
+        b = torch.randn(k * n + 3, generator=g, device=dev)[3:].view(k, n)
+    else:
+        b = torch.randn(k, n, generator=g, device=dev)
     return a, b
 
 

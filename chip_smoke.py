@@ -77,9 +77,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    n = 16384, k = 0 (rtol 1e-4, atol 1e-4 · max|C|); each
    bitwise-repeatable, timed beside its plain version, its bound and the
    library call: ``torch.matmul`` (cuBLAS) for the GEMM, and for the QR
-   update three cuBLAS calls (mm, mm, addmm); the GEMM library's SASS
-   (``cuobjdump``) must hold no tensor-core instruction (``HMMA``,
-   ``HGMMA``);
+   update three cuBLAS calls (mm, mm, addmm); the QR update also with
+   nothing written above or left of its window, its CUDA kernels a call
+   and each one's device µs (``torch.profiler``); the SASS of the GEMM
+   and QR-update libraries (``cuobjdump``) must hold no tensor-core
+   instruction (``HMMA``, ``HGMMA``), and each kernel's ``FFMA`` and
+   ``LDL`` / ``STL`` counts are printed;
 4e. least-squares main path at m = 32768, n = 8192 float32 (A Gaussian /
    √m, b = A x* + 1e-3 · a Gaussian): ``api.solve(..., method="qr",
    backend="cuda")`` with the QR update and triangular-solve counters
@@ -100,7 +103,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    the CLI accepts but the main path does not run, against its plain
    version at rtol 1e-5 and atol 1e-5 · max|G|, bitwise-repeatable, timed
    beside the plain version, ``torch.mm(v, v.T)`` (cuBLAS) and its bound
-   max(4kn bytes ÷ 3.35 TB/s, 2k²n flops ÷ 67 TFLOP/s);
+   max(4kn bytes ÷ 3.35 TB/s, 2k²n flops ÷ 67 TFLOP/s), with its achieved
+   GB/s and bound share, its device µs and CUDA kernels a call
+   (``torch.profiler``; one kernel, at most once a call, for k ≤ 16), and
+   the host µs a call of the wrapper and of ``torch.mm``;
 4f. s-step main path: ``api.solve(..., backend="cuda")`` against
    ``backend="ref"`` on the card, dense n = 16384 float32 (ca_cg s = 2 on
    the SPD system, ca_gmres s = 4 and s = 8 on ``a + nI``) and the 128³
@@ -187,6 +193,7 @@ FP32_FLOPS_PER_S = 67e12             # H100 SXM float32, outside tensor cores
 N_MAIN = 16384
 KERNEL_SIZES = (N_MAIN, N_MAIN + 130, 1 << 24)
 TIMED_LAUNCHES = 200
+HOST_TIMED_CALLS = 400               # under the launch queue's depth
 RESIDUAL_LIMIT = 1e-4
 STEADY_ITERS = 100
 STEADY_PAIRS = 6
@@ -306,6 +313,7 @@ GRAM_SHAPES = tuple(sorted({
               if name == "poisson" else (N_MAIN,))})) + (
     (17, N_MAIN), (17, SPARSE_GRID ** 3))
 GRAM_OFF_PATH_K = 17
+PROFILED_CALLS = 20                  # calls a torch.profiler trace counts
 GRAM_RECORD_SHAPE = (9, SPARSE_GRID ** 3)   # ca_cg s = 4 on the 128³ BSR
 GRAM_RECORD = {"source": "src/repro_torch/kernels/csrc/krylov_fused.cu",
                "replaces": "src/repro/kernels/krylov_fused.py:240"}
@@ -375,6 +383,22 @@ def time_ms(torch, fn, launches: int = TIMED_LAUNCHES) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / launches
+
+
+def host_us(torch, fn, calls: int = HOST_TIMED_CALLS) -> float:
+    """Host-clock µs a call of ``fn`` over ``calls`` calls that only
+    enqueue work (few enough that the launch queue never fills), after a
+    warm-up: the wrapper's host cost, which sets a back-to-back time
+    wherever it exceeds the device's."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return 1e6 * elapsed / calls
 
 
 def phase_card(torch) -> str:
@@ -617,24 +641,46 @@ def _trsm_cases(torch, n: int):
             "transposed": (chol.T, True, False)}, g
 
 
-def _cuda_kernels(torch, fn) -> list:
-    """Names of the CUDA kernels that one call of ``fn`` launched
-    (``torch.profiler``).  A trace that came back with no device activity
-    at all is a failed trace, not a count: it is taken again, up to three
-    times."""
+def _cuda_kernel_events(torch, fn, calls: int = 1) -> list:
+    """(name, device µs) of the CUDA kernels that ``calls`` calls of ``fn``
+    launched (``torch.profiler``).  A trace that came back with no device
+    activity at all is a failed trace, not a count: it is taken again, up
+    to three times."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if str(e.device_type).endswith("CUDA")]
-        if names:
-            return names
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")]
+        if events:
+            return events
+        time.sleep(1.0)
     raise SmokeFailure("torch.profiler recorded no CUDA activity in three "
                        "traces")
+
+
+def _cuda_kernels(torch, fn, calls: int = 1) -> list:
+    """Names of the CUDA kernels that ``calls`` calls of ``fn`` launched."""
+    return [name for name, _ in _cuda_kernel_events(torch, fn, calls)]
+
+
+def _kernel_us(events) -> str:
+    """Mean device µs of each kind of kernel in ``events``, as
+    ``name=µs`` pairs joined by ``;`` (a name without its namespaces and
+    arguments, with its template arguments)."""
+    times: dict[str, list] = {}
+    for name, us in events:
+        base = name.replace("(anonymous namespace)::", "")
+        base = base.removeprefix("void ").split("(")[0].replace(" ", "")
+        head, _, args = base.partition("<")
+        short = head.split("::")[-1] + (f"<{args}" if args else "")
+        times.setdefault(short, []).append(us)
+    return ";".join(f"{k}={statistics.fmean(v):.3f}"
+                    for k, v in times.items())
 
 
 def _trsm_row(torch, label: str, t, upper: bool, unit: bool, b) -> dict:
@@ -1208,32 +1254,36 @@ def _qr_update_cost(m: int, n: int, nb: int, k: int) -> tuple[float, float]:
 
 
 def _gemm_sass() -> None:
-    """Kernel 7 stays on the float32 pipes: the count of tensor-core
-    instructions (``HMMA``, ``HGMMA``) in its library's SASS
-    (``cuobjdump``) must be 0; its ``FFMA`` count is printed beside."""
+    """Kernels 7 and 9 stay on the float32 pipes: the count of tensor-core
+    instructions (``HMMA``, ``HGMMA``) in the SASS (``cuobjdump``) of the
+    ``gemm`` and ``qr_fused`` libraries must be 0; each kernel's ``FFMA``
+    and local-memory (``LDL`` / ``STL``, spill) counts are printed beside."""
     from repro_torch.kernels import _build
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
-    check(cuobjdump.exists(), f"no cuobjdump at {cuobjdump}: kernel 7's "
-                              "SASS cannot be checked")
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(_build.build("gemm"))],
-                          capture_output=True, text=True)
-    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
-    lines = sass.stdout.splitlines()
-    tensor = sum(1 for line in lines if "HMMA" in line or "HGMMA" in line)
-    print(f"[ls-kernel] gemm.cu SASS: HMMA/HGMMA instructions {tensor}")
-    counts, name = {}, None        # FFMA and local loads / stores a kernel
-    for line in lines:
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            counts[name] = [0, 0]
-        elif name is not None:
-            counts[name][0] += "FFMA" in line
-            counts[name][1] += "LDL" in line or "STL" in line
-    for name, (ffma, local) in counts.items():
-        print(f"[ls-kernel]   {name[:70]}: FFMA {ffma}, LDL/STL {local}")
-    check(tensor == 0, f"kernel 7's SASS holds {tensor} tensor-core "
-                       "instructions")
+    check(cuobjdump.exists(), f"no cuobjdump at {cuobjdump}: kernels 7 "
+                              "and 9's SASS cannot be checked")
+    for lib in ("gemm", "qr_fused"):
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(_build.build(lib))],
+                              capture_output=True, text=True)
+        check(sass.returncode == 0,
+              f"cuobjdump failed on {lib}: {sass.stderr.strip()}")
+        lines = sass.stdout.splitlines()
+        tensor = sum(1 for line in lines
+                     if "HMMA" in line or "HGMMA" in line)
+        print(f"[ls-kernel] {lib}.cu SASS: HMMA/HGMMA instructions {tensor}")
+        counts, name = {}, None    # FFMA and local loads / stores a kernel
+        for line in lines:
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                counts[name] = [0, 0]
+            elif name is not None:
+                counts[name][0] += "FFMA" in line
+                counts[name][1] += "LDL" in line or "STL" in line
+        for name, (ffma, local) in counts.items():
+            print(f"[ls-kernel]   {name[:70]}: FFMA {ffma}, LDL/STL {local}")
+        check(tensor == 0, f"{lib}.cu's SASS holds {tensor} tensor-core "
+                           "instructions")
 
 
 def phase_ls_kernels(torch) -> dict:
@@ -1251,6 +1301,8 @@ def phase_ls_kernels(torch) -> dict:
                                        "differ")
         check(torch.equal(got[:, :k + nb], a[:, :k + nb]),
               f"qr_panel_update k={k}: wrote left of the window")
+        check(torch.equal(got[:k], a[:k]),
+              f"qr_panel_update k={k}: wrote above the window")
         err = float((got - want).abs().max())
         change = float((want - a).abs().max())
         atol = 1e-4 * change
@@ -1259,6 +1311,9 @@ def phase_ls_kernels(torch) -> dict:
               f"abs err {err}, atol {atol})")
         del got, again, want
         w = a                          # timed calls update w in place
+        events = _cuda_kernel_events(torch, lambda: qr_fused.qr_panel_update(
+            w, v, t, k, nb=nb), PROFILED_CALLS)
+        names = [name for name, _ in events]
         win = w[k:, k + nb:]
         ms = time_ms(torch, lambda: qr_fused.qr_panel_update(w, v, t, k,
                                                              nb=nb),
@@ -1278,7 +1333,9 @@ def phase_ls_kernels(torch) -> dict:
               f"flops={flops:.6e} bytes={nbytes:.6e} "
               f"achieved_tflops={flops / ms / 1e9:.3f} "
               f"library_ms={library_ms:.6f} (three cuBLAS calls: mm, mm, "
-              "addmm)")
+              f"addmm) cuda_kernels_a_call={len(names) / PROFILED_CALLS:g} "
+              f"kernel_kinds={len(set(names))} "
+              f"kernel_device_us={_kernel_us(events)}")
         if k == 0:                     # the record: the largest step
             record["qr_panel_update"] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1479,6 +1536,7 @@ def phase_gram_kernel(torch) -> dict:
     from repro_torch.kernels import krylov_fused, ref
     dev = torch.device("cuda")
     record = {}
+    stream_max_k = krylov_fused._lib().gram_stream_max_k   # one launch
     for k, n in GRAM_SHAPES:
         g = torch.Generator(device=dev).manual_seed(k * 31 + n)
         v = torch.randn(k, n, generator=g, device=dev)
@@ -1496,9 +1554,21 @@ def phase_gram_kernel(torch) -> dict:
             got, want, rtol=1e-5, atol=1e-5 * scale),
             f"{label}: kernel and plain version differ (max abs err {err}, "
             f"max |G| {scale})")
+        # torch.profiler drops a kernel's record now and then, never adds
+        # one: one launch a call is one kind of kernel, at most once a call
+        events = _cuda_kernel_events(
+            torch, lambda: krylov_fused.fused_gram(v), PROFILED_CALLS)
+        names = [name for name, _ in events]
+        per_call = len(names) / PROFILED_CALLS
+        kinds = sorted(set(names))
+        check(k > stream_max_k or (len(kinds) == 1 and per_call <= 1),
+              f"{label}: {per_call} CUDA kernels a call of {len(kinds)} "
+              f"kinds, not one ({kinds})")
         ms = time_ms(torch, lambda: krylov_fused.fused_gram(v))
         plain_ms = time_ms(torch, lambda: ref.fused_gram(v))
         library_ms = time_ms(torch, lambda: torch.mm(v, v.T))
+        wrapper_us = host_us(torch, lambda: krylov_fused.fused_gram(v))
+        library_us = host_us(torch, lambda: torch.mm(v, v.T))
         flops, nbytes = 2.0 * k * k * n, 4.0 * (k * n + k * k)
         bound_ms, bound_by = _bound(flops, nbytes)
         print(f"[gram-kernel] {label}{where} max_abs_err={err:.3e} "
@@ -1507,7 +1577,11 @@ def phase_gram_kernel(torch) -> dict:
               f"bound_by={bound_by} library_ms={library_ms:.6f} "
               f"(torch.mm(v, v.T), cuBLAS) "
               f"achieved_GBps={nbytes / ms / 1e6:.1f} "
-              f"bound_share={bound_ms / ms:.4f}")
+              f"bound_share={bound_ms / ms:.4f} "
+              f"cuda_kernels_a_call={per_call:g} kernel_kinds={len(kinds)} "
+              f"kernel_device_us={_kernel_us(events)} "
+              f"host_us_a_call={wrapper_us:.3f} "
+              f"library_host_us_a_call={library_us:.3f}")
         if (k, n) == GRAM_RECORD_SHAPE:
             record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,

@@ -83,6 +83,21 @@ def on_cuda(v: torch.Tensor) -> bool:
     return True
 
 
+# torch's private getter of the current stream's raw handle; where a torch
+# release lacks it, current_stream takes the public (slower) route.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of torch's current stream on the CUDA ``device``, as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it but without
+    building a ``torch.cuda.Stream``, which costs a small kernel's launch
+    several times over."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return _RAW_STREAM(device.index)
+
+
 def raise_on(err: int, error_string, what: str) -> None:
     """Raise when a library call returned a CUDA error; ``error_string`` is
     the library's own ``cudaGetErrorString`` export."""

@@ -28,7 +28,7 @@
 // block is writing, so the step works in place on the working matrix.
 // Each 128 x 128 output tile belongs to one block, which sums its products
 // in a fixed order: no atomics, and reruns are bitwise equal.  The tile is
-// the shared SIMT GEMM of tile_gemm.cuh (8 x 8 outputs a thread, the next
+// the SIMT GEMM of tile_gemm.cuh (8 x 8 outputs a thread, the next
 // slice's loads in flight while the current one multiplies), unsplit: the
 // trailing block's tiles fill the card.  TMA and wgmma are left for later
 // work.
@@ -67,12 +67,12 @@ int factor_lu_panel_update(float* a, int64_t n, const float* linv, int64_t k,
   float* row = a + k * n + k + nb;      // panel row block, trailing columns
   // U12 = Linv R into the scratch
   err = tile::gemm<false>(View{linv, nb, 1}, View{row, n, 1}, u, m, nb, m,
-                          nb, nullptr, 1, s);
+                          nb, s);
   if (err) return err;
   // A22 -= L21 U12
   float* l21 = a + (k + nb) * n + k;
   err = tile::gemm<true>(View{l21, n, 1}, View{u, m, 1}, l21 + nb, n, m, m,
-                         nb, nullptr, 1, s);
+                         nb, s);
   if (err) return err;
   // U12 into the panel row block (after the solve has read all of R)
   return static_cast<int>(cudaMemcpy2DAsync(
@@ -94,12 +94,12 @@ int factor_cholesky_panel_update(float* a, int64_t n, const float* linv,
   float* col = a + (k + nb) * n + k;    // panel column block, rows below
   // L21 = C Linv^T into the scratch: B(q, j) = linv[j, q]
   err = tile::gemm<false>(View{col, n, 1}, View{linv, 1, nb}, l, nb, m, nb,
-                          nb, nullptr, 1, s);
+                          nb, s);
   if (err) return err;
   // A22 -= L21 L21^T over the whole trailing block (both triangles, as the
   // TPU kernel does): B(q, j) = l[j, q]
   err = tile::gemm<true>(View{l, nb, 1}, View{l, 1, nb}, col + nb, n, m, m,
-                         nb, nullptr, 1, s);
+                         nb, s);
   if (err) return err;
   // L21 into the panel column block
   return static_cast<int>(cudaMemcpy2DAsync(

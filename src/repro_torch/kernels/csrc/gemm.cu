@@ -50,7 +50,7 @@ int gemm_matmul(const float* a, int64_t a_rs, int64_t a_cs, const float* b,
     return static_cast<int>(cudaErrorInvalidValue);
   int err = static_cast<int>(cudaSetDevice(device));
   if (err) return err;
-  return sm90::gemm(a, a_rs, a_cs, b, b_rs, b_cs, c, static_cast<int>(M),
+  return sm90::gemm(a, a_rs, a_cs, b, b_rs, b_cs, c, N, static_cast<int>(M),
                     static_cast<int>(N), static_cast<int>(K), scratch, splits,
                     static_cast<cudaStream_t>(stream));
 }

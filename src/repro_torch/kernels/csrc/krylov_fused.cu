@@ -17,13 +17,15 @@
 //                         it up to k ~ 40 (k = 2s + 1 or s + 1 on the path)
 // The design meets the bound with a single pass and no intermediate
 // vectors: each element is read once and each output written once, and the
-// reductions ride along in registers.  Vectorised loads, grid tuning and
-// CUDA graphs are left for later work.
+// reductions ride along in registers.
 //
-// Determinism: the reductions use no atomics.  Pass 1 writes one partial
-// sum per block (a shared-memory tree with a fixed shape) into a partials
-// buffer; pass 2 sums the partials in a fixed order.  The grid depends only
-// on the shape, so reruns give bitwise-identical results.
+// Determinism: no sum uses atomics.  fused_cg_update and
+// fused_pipelined_dots write one partial sum per block (a shared-memory
+// tree with a fixed shape) into a partials buffer, and a second launch sums
+// the partials in a fixed order.  fused_gram (k <= 16) does both in one
+// launch: the block that takes the last ticket sums every block's partials
+// in block order.  The grids depend only on the shape, so reruns give
+// bitwise-identical results.
 //
 // The TPU kernels' zero pad to a multiple of 8x128 was a tiling need; here a
 // grid-stride loop with an `i < n` bound covers any n (and any k for the
@@ -33,19 +35,30 @@
 // to read it back (no synchronisation per iteration).
 //
 // fused_gram: the TPU kernel carried a (k, k) sum in VMEM over a sequential
-// grid of column chunks.  Here a block stages a chunk of up to 1024 columns
-// of V into shared memory (coalesced 16-byte loads, four in flight per
-// thread, each element read from device memory once) and its threads
-// accumulate 4 x 4 register micro-tiles of G's upper triangle over the
-// chunk's columns: for k <= 32 one tile of G covers all of it and V is read
-// once; a larger k is cut into 32-row tiles, one blockIdx.y per pair of
-// tiles (I <= J), and V is read ceil(k / 32) times (there the kernel is
-// bound by its flops).  The block's threads split the chunk's columns into
-// `lanes` and sum the lanes of each micro-tile in a fixed order; each block
-// writes its upper triangle to its own slot of the partials buffer, and
-// pass 2 sums the slots (a warp per entry, lanes in a fixed order, then a
-// fixed shuffle tree) and mirrors the sum into G's lower triangle, so G is
-// exactly symmetric.
+// grid of column chunks.  For the s-step path's k (5 and 9; any k <= 16)
+// one launch streams V from device memory straight into registers: a
+// thread takes 4 columns (a quad) of every row as 16-byte loads, one to
+// four quads in flight, and accumulates the upper triangle of G over its
+// quads t, t + P, ... (P threads in the grid); the grid has one block per
+// 256 quads up to two blocks an SM (one above k = 10, where k(k + 1) / 2
+// sums and k float4 fill the registers), so an SM keeps 40-70 KB of V in
+// flight.  A block sums its threads by a fixed shuffle tree in each warp
+// and its warps in order, writes its partial triangle, and takes a ticket
+// (release / acquire); the block with the last ticket sums the partials
+// in block order through shared memory, mirrors G (exactly symmetric) and
+// sets the ticket back to 0.  The ticket lives in a workspace the wrapper
+// keeps for each stream.  A larger k keeps the staged kernel: a block
+// stages a chunk of up to 1024 columns of V into shared memory (coalesced
+// 16-byte loads, four in flight per thread) and its threads accumulate
+// 4 x 4 register micro-tiles of G's upper triangle over the chunk's
+// columns: for k <= 32 one tile of G covers all of it and V is read once;
+// a larger k is cut into 32-row tiles, one blockIdx.y per pair of tiles
+// (I <= J), and V is read ceil(k / 32) times (there the kernel is bound by
+// its flops).  The block's threads split the chunk's columns into `lanes`
+// and sum the lanes of each micro-tile in a fixed order; each block writes
+// its upper triangle to its own slot of the partials buffer, and a second
+// launch sums the slots (a warp per entry, lanes in a fixed order, then a
+// fixed shuffle tree) and mirrors the sum into G's lower triangle.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -342,6 +355,201 @@ gram_sum_kernel(const float* __restrict__ partials, int k, int nparts,
   }
 }
 
+// ---- fused_gram for k <= kStreamMaxK: one streaming launch ---------------
+
+constexpr int kStreamMaxK = 16;      // above it, the staged tiles above
+constexpr int kStreamSMs = 132;      // an H100's SMs: the grid's unit
+constexpr int kSmemOptIn = 32 * 1024;  // above it, ask for more shared memory
+
+// Resident blocks an SM the register budget allows (k(k + 1) / 2 sums and
+// k float4 a thread).
+__host__ __device__ constexpr int stream_blocks_per_sm(int k) {
+  return k <= 10 ? 2 : 1;
+}
+
+// Quads (4 columns) a thread loads before it multiplies: enough that a
+// thread keeps 8 float4 of V in flight where k is small.
+__host__ __device__ constexpr int stream_unroll(int k) {
+  return k <= 2 ? 4 : k <= 5 ? 2 : 1;
+}
+
+// Blocks of the streaming Gram launch for a (k, n) V: one per 256 quads,
+// at most stream_blocks_per_sm(k) an SM of an H100.  A function of (k, n)
+// alone, so reruns sum in the same order.
+int gram_stream_blocks(int k, int64_t n) {
+  const int64_t quads = (n + 3) / 4;
+  const int64_t cap = static_cast<int64_t>(stream_blocks_per_sm(k)) *
+                      kStreamSMs;
+  const int64_t b = (quads + kThreads - 1) / kThreads;
+  return static_cast<int>(b < cap ? b : cap);
+}
+
+// Floats of a stream's Gram workspace: a 16-byte header whose first int
+// is the ticket, then the largest blocks x k(k + 1) / 2 partials.
+constexpr int64_t gram_work_floats() {
+  int64_t most = 0;
+  for (int k = 1; k <= kStreamMaxK; ++k) {
+    const int64_t p = static_cast<int64_t>(stream_blocks_per_sm(k)) *
+                      kStreamSMs * k * (k + 1) / 2;
+    if (p > most) most = p;
+  }
+  return 4 + most;
+}
+
+// Columns 4q .. 4q + 3 of row i (zeros past n, or for q past the last quad).
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ v,
+                                            int i, int64_t q, int64_t n,
+                                            int64_t quads, int vec4) {
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (q >= quads) return x;
+  const float* p = v + i * n + 4 * q;
+  if (vec4) return *reinterpret_cast<const float4*>(p);
+  const int64_t left = n - 4 * q;
+  x.x = p[0];
+  if (left > 1) x.y = p[1];
+  if (left > 2) x.z = p[2];
+  if (left > 3) x.w = p[3];
+  return x;
+}
+
+__device__ __forceinline__ float comp4(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// acc[(i, j)] += V[i, c] V[j, c] for i <= j (the upper triangle row by
+// row), for the quad's columns c in order.
+template <int K>
+__device__ __forceinline__ void gram_quad(const float4 (&x)[K],
+                                          float (&acc)[K * (K + 1) / 2]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    int e = 0;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const float vi = comp4(x[i], c);
+#pragma unroll
+      for (int j = i; j < K; ++j, ++e)
+        acc[e] = fmaf(vi, comp4(x[j], c), acc[e]);
+    }
+  }
+}
+
+// G = V V^T in one launch.  Thread t of the grid's P threads sums the
+// quads t, t + P, t + 2P, ... of V in that order, reading each row's
+// four columns as one 16-byte load (4-byte loads when n % 4 != 0 or V is
+// not 16-byte aligned) with stream_unroll(K) quads in flight; a block sums
+// its threads by a shuffle tree in each warp (offsets 16, 8, 4, 2, 1) and
+// its warps in order 0 .. 7, and writes its k(k + 1) / 2 partials.  The
+// block that takes the last ticket (release / acquire) sums the blocks'
+// partials in block order, mirrors G and sets the ticket back to 0; the
+// ticket picks that block, never the order of a sum.
+template <int K>
+__global__ void __launch_bounds__(kThreads, stream_blocks_per_sm(K))
+gram_stream_kernel(const float* __restrict__ v, int64_t n, int vec4,
+                   float* __restrict__ partials, unsigned* ticket,
+                   float* __restrict__ g) {
+  constexpr int T = K * (K + 1) / 2;
+  constexpr int U = stream_unroll(K);
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
+  __shared__ int last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  float acc[T];
+#pragma unroll
+  for (int e = 0; e < T; ++e) acc[e] = 0.f;
+  const int64_t quads = (n + 3) / 4;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + tid;
+       q < quads; q += U * stride) {
+    float4 x[U][K];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        x[u][i] = load_quad(v, i, q + u * stride, n, quads, vec4);
+#pragma unroll
+    for (int u = 0; u < U; ++u) gram_quad<K>(x[u], acc);
+  }
+
+  // the block's sums: a shuffle tree a warp, then the warps in order
+#pragma unroll
+  for (int e = 0; e < T; ++e) {
+    float s = acc[e];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) sh[warp * T + e] = s;
+  }
+  __syncthreads();
+  if (tid < T) {
+    float s = sh[tid];
+#pragma unroll
+    for (int w = 1; w < kThreads / 32; ++w) s += sh[w * T + tid];
+    partials[static_cast<int64_t>(blockIdx.x) * T + tid] = s;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    unsigned prev;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;\n"
+                 : "=r"(prev) : "l"(ticket), "r"(1u) : "memory");
+    last = prev == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // the last block: every block's partials through shared memory (L2
+  // reads), then each entry summed in block order
+  __threadfence();
+  if (tid == 0) *ticket = 0;
+  const int total = gridDim.x * T;
+  for (int e = tid; e < total; e += kThreads) sh[e] = __ldcg(partials + e);
+  __syncthreads();
+  if (tid < T) {
+    float s = sh[tid];
+    for (int b = 1; b < static_cast<int>(gridDim.x); ++b) s += sh[b * T + tid];
+    int i = 0, e = tid;
+    while (e >= K - i) {
+      e -= K - i;
+      ++i;
+    }
+    g[i * K + i + e] = s;
+    g[(i + e) * K + i] = s;
+  }
+}
+
+template <int K>
+int launch_stream(const float* v, int64_t n, float* work, float* g,
+                  cudaStream_t s) {
+  constexpr int T = K * (K + 1) / 2;
+  const int blocks = gram_stream_blocks(K, n);
+  const int rows = blocks > kThreads / 32 ? blocks : kThreads / 32;
+  const size_t smem = sizeof(float) * rows * T;
+  auto kernel = gram_stream_kernel<K>;
+  if (smem > kSmemOptIn) {
+    const int err = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem)));
+    if (err) return err;
+  }
+  const int vec4 = n % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  kernel<<<blocks, kThreads, smem, s>>>(
+      v, n, vec4, work + 4, reinterpret_cast<unsigned*>(work), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K = 1>
+int gram_stream(int k, const float* v, int64_t n, float* work, float* g,
+                cudaStream_t s) {
+  if constexpr (K > kStreamMaxK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return k == K ? launch_stream<K>(v, n, work, g, s)
+                  : gram_stream<K + 1>(k, v, n, work, g, s);
+  }
+}
+
 int check_args(int device, int64_t n, int blocks) {
   if (n <= 0 || blocks <= 0 || blocks > kMaxBlocks)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -390,10 +598,23 @@ int krylov_fused_pipelined_dots(const float* r, const float* u, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Column blocks of the Gram matrix's pass 1 for a (k, n) V: one per staged
-// chunk of columns, at most kGramMaxBlocks, and few enough that the
-// partials (blocks x k x k floats) stay within kGramMaxPartials.  A
-// function of the shape alone, so reruns sum in the same order.
+int krylov_gram_stream_max_k() { return kStreamMaxK; }
+
+// Floats of a stream's Gram workspace (the ticket and the streaming
+// launch's partials); the caller zeroes it once.
+int64_t krylov_gram_work_floats() { return gram_work_floats(); }
+
+// Blocks of the one-launch Gram kernel (k <= kStreamMaxK) for a (k, n) V,
+// or 0 for a shape it does not take.
+int krylov_gram_stream_blocks(int k, int64_t n) {
+  return k <= 0 || k > kStreamMaxK || n <= 0 ? 0 : gram_stream_blocks(k, n);
+}
+
+// Column blocks of the staged Gram kernel's pass 1 (k > kStreamMaxK) for a
+// (k, n) V: one per staged chunk of columns, at most kGramMaxBlocks, and
+// few enough that the partials (blocks x k x k floats) stay within
+// kGramMaxPartials.  A function of the shape alone, so reruns sum in the
+// same order.
 int krylov_gram_blocks(int k, int64_t n) {
   if (k <= 0 || n <= 0) return 0;
   const int64_t w = gram_chunk(k);
@@ -405,18 +626,26 @@ int krylov_gram_blocks(int k, int64_t n) {
 }
 
 // g = v v^T for a contiguous (k, n) row-major v; g is (k, k), exactly
-// symmetric.  partials holds blocks * k * k floats.
-int krylov_fused_gram(const float* v, float* partials, float* g, int k,
-                      int64_t n, int blocks, int device, void* stream) {
-  const int ntiles = gram_ntiles(k);
-  const int64_t pairs = static_cast<int64_t>(ntiles) * (ntiles + 1) / 2;
-  if (k <= 0 || n <= 0 || blocks <= 0 || blocks > kGramMaxBlocks
-      || pairs > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+// symmetric.  For k <= kStreamMaxK one launch, on the stream's workspace
+// `work` (krylov_gram_work_floats floats, 16-byte aligned, ticket 0
+// between calls); above it the staged kernel and its sum, on `partials`
+// (krylov_gram_blocks(k, n) * k * k floats).
+int krylov_fused_gram(const float* v, float* work, float* partials, float* g,
+                      int k, int64_t n, int device, void* stream) {
+  if (k <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   int err = static_cast<int>(cudaSetDevice(device));
   if (err) return err;
-  const int vec4 = n % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= kStreamMaxK) {
+    if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return gram_stream(k, v, n, work, g, s);
+  }
+  const int blocks = krylov_gram_blocks(k, n);
+  const int ntiles = gram_ntiles(k);
+  const int64_t pairs = static_cast<int64_t>(ntiles) * (ntiles + 1) / 2;
+  if (partials == nullptr || pairs > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec4 = n % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
   gram_partials_kernel<<<dim3(blocks, static_cast<unsigned>(pairs)), kThreads,
                          0, s>>>(v, k, n, ntiles, vec4, partials);
   err = static_cast<int>(cudaGetLastError());

@@ -1,21 +1,15 @@
-// The float32 tile GEMM shared by gemm.cu (kernel 7), qr_fused.cu (kernel 9)
-// and factor_fused.cu (kernels 4 and 5): C = A B or C -= A B on strided
-// views, for any M, N, K, with an optional split of K that stays
-// deterministic.
+// The float32 tile GEMM of factor_fused.cu (kernels 4 and 5): C = A B or
+// C -= A B on strided views, for any M, N, K.  (Kernels 7 and 9 run the
+// multistage mainloop of tile_gemm_sm90.cuh.)
 //
 // Each 128 x 128 output tile belongs to one block of 256 threads (8 x 8
-// outputs a thread), which walks its range of K in slices of 8: a slice is
-// staged through shared memory, and the next slice's loads are issued into
+// outputs a thread), which walks K in slices of 8: a slice is staged
+// through shared memory, and the next slice's loads are issued into
 // registers before the current slice is multiplied (two shared buffers, one
 // barrier a slice).  The products run in full float32 with float32
 // accumulation, summed in a fixed order: no TF32, no tensor cores, no
-// atomics, so reruns are bitwise equal.
-//
-// Few output tiles with a long K (QR's (nb x m) V^T times (m x n) A has 63
-// tiles at n = 8192, nb = 128, on 132 SMs) would leave most of the card idle,
-// so K is split: split z sums its own range of K into a partial tile of a
-// scratch buffer, and a second launch adds the partials in the order
-// z = 0, 1, ... into C.  The number of splits depends on the shapes alone.
+// atomics, so reruns are bitwise equal.  The kernel can sum a range of K
+// a blockIdx.z (kc deep, C at c + z * zs); the panel updates launch one.
 #pragma once
 
 #include <cstdint>
@@ -28,9 +22,6 @@ constexpr int kBN = 128;           // output tile columns
 constexpr int kBK = 8;             // depth of one staged slice
 constexpr int kThreads = 256;      // 16 x 16 threads, 8 x 8 outputs each
 constexpr int kLoads = kBM * kBK / kThreads;   // staged values a thread
-constexpr int kTargetBlocks = 264;             // two waves on 132 SMs
-constexpr int kMinSplitDepth = 512;            // least K a split keeps
-constexpr int kSumThreads = 256;
 
 static_assert(kBM == kBN, "one load pattern serves both operands");
 
@@ -139,62 +130,15 @@ gemm_kernel(View A, View B, float* __restrict__ c, int64_t ldc, int64_t zs,
   }
 }
 
-// C[i, j] (= or -=) the sum over z = 0, 1, ..., nz - 1, in that order, of
-// the partial tiles part[z * M * N + i * N + j].
-template <bool kSub>
-__global__ void __launch_bounds__(kSumThreads)
-split_sum_kernel(const float* __restrict__ part, int nz, float* c,
-                 int64_t ldc, int M, int N) {
-  const int64_t total = static_cast<int64_t>(M) * N;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       e < total; e += step) {
-    float sum = part[e];
-    for (int z = 1; z < nz; ++z) sum += part[z * total + e];
-    float* o = c + (e / N) * ldc + e % N;
-    *o = kSub ? *o - sum : sum;
-  }
-}
-
-// How many parts K is split into for an (M x K)(K x N) product: one when
-// the output tiles alone fill two waves, else enough parts for two waves,
-// each at least kMinSplitDepth deep.  The wrapper sizes the scratch by it.
-inline int splits_for(int64_t M, int64_t N, int64_t K) {
-  const int64_t tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-  if (tiles <= 0 || tiles >= kTargetBlocks / 2) return 1;
-  int64_t s = (kTargetBlocks + tiles - 1) / tiles;
-  if (s > K / kMinSplitDepth) s = K / kMinSplitDepth;
-  return s < 1 ? 1 : static_cast<int>(s);
-}
-
-// Launch C (= or -=) A B; `scratch` holds splits * M * N floats when
-// splits > 1.  Returns the CUDA error of the launches (0 on success).
+// Launch C (= or -=) A B.  Returns the CUDA error of the launch (0 on
+// success).
 template <bool kSub>
 int gemm(View A, View B, float* c, int64_t ldc, int M, int N, int K,
-         float* scratch, int splits, cudaStream_t s) {
-  if (M <= 0 || N <= 0 || K <= 0 || splits < 1 ||
-      (M + kBM - 1) / kBM > 65535)
+         cudaStream_t s) {
+  if (M <= 0 || N <= 0 || K <= 0 || (M + kBM - 1) / kBM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  int kc = (K + splits - 1) / splits;
-  kc = (kc + kBK - 1) / kBK * kBK;
-  const int nz = (K + kc - 1) / kc;       // every split non-empty
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, nz);
-  if (nz == 1) {
-    gemm_kernel<kSub><<<grid, kThreads, 0, s>>>(A, B, c, ldc, 0, M, N, K,
-                                                kc);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = static_cast<int64_t>(M) * N;
-  gemm_kernel<false><<<grid, kThreads, 0, s>>>(A, B, scratch, N, total, M,
-                                               N, K, kc);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  int64_t blocks = (total + kSumThreads - 1) / kSumThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  split_sum_kernel<kSub><<<static_cast<int>(blocks), kSumThreads, 0, s>>>(
-      scratch, nz, c, ldc, M, N);
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, 1);
+  gemm_kernel<kSub><<<grid, kThreads, 0, s>>>(A, B, c, ldc, 0, M, N, K, K);
   return static_cast<int>(cudaGetLastError());
 }
 

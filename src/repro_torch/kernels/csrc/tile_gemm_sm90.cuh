@@ -1,6 +1,7 @@
-// The float32 GEMM mainloop of gemm.cu (kernel 7) for Hopper: C = A B on
-// strided views, for any M, N, K, in full float32 on the float32 pipes (no
-// TF32, no tensor cores), with a split of K that stays deterministic.
+// The float32 GEMM mainloop of gemm.cu (kernel 7) and qr_fused.cu (kernel
+// 9) for Hopper: C = A B, or C -= A B in place, on strided views, for any
+// M, N, K, in full float32 on the float32 pipes (no TF32, no tensor cores),
+// with a split of K that stays deterministic.
 //
 // A block of 256 threads owns a 128 x 128 tile of C; each thread 8 x 8 of
 // it, as 2 x 2 fragments of 4 x 4 (rows 4ty .. 4ty + 3 and 64 + the same,
@@ -24,12 +25,19 @@
 // which has no unit stride, is copied 4 bytes at a time by the same kernel;
 // ragged edges are zero-filled by the copies' source size.
 //
+// The epilogue writes C = acc into a new matrix, or (kSub) C -= acc into a
+// window of a larger one: a row stride ldc, read and written in place.  A
+// thread's four columns of a fragment row move as one 16-byte access where
+// ldc is a multiple of 4 and C's base is 16-byte aligned, else (and at a
+// ragged right edge) 4 bytes at a time; the subtracting epilogue loads a
+// half of its rows (4 x 2 float4) before it stores any.
+//
 // The sums run in a fixed order (ascending q within a split), without
 // atomics, so reruns are bitwise equal.  Few output tiles with a long K
 // (QR's V^T A: 63 tiles at n = 8192) would leave the card idle, so K is
 // split into as many parts as the resident blocks allow: split z writes a
 // partial tile to a scratch buffer, and a second launch adds the partials
-// in the order z = 0, 1, ... into C.
+// in the order z = 0, 1, ... into C (=, or -= for kSub).
 #pragma once
 
 #include <cstdint>
@@ -252,9 +260,56 @@ __device__ __forceinline__ void slice_product(const float* as,
   }
 }
 
-// C[i, j] = sum over q in [z kc, min(K, (z+1) kc)) of A(i, q) B^T(j, q), for
-// i < M, j < N, with z = blockIdx.z and C at c + z * zs (row stride ldc).
-template <bool kAK, bool kBKm>
+// C -= acc on the four rows i .. i + 3 of a thread's fragment (acc rows
+// r0 .. r0 + 3), columns 4tx .. and 64 + 4tx ..: every load is issued
+// before the first store, so the read of C costs one round trip, not four.
+__device__ __forceinline__ void sub_rows(float* c, int64_t ldc,
+                                         const float (&acc)[8][8], int i,
+                                         int j0, int tx, int M, int N,
+                                         int vec_c, int r0) {
+  float4 old[4][2];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* o = c + static_cast<int64_t>(i + r) * ldc;
+      const int j = j0 + frag_row(tx, 4 * h);
+      old[r][h] = float4{0.f, 0.f, 0.f, 0.f};
+      if (i + r >= M) continue;
+      if (vec_c && j + 3 < N) {
+        old[r][h] = *reinterpret_cast<const float4*>(o + j);
+      } else {
+        if (j < N) old[r][h].x = o[j];
+        if (j + 1 < N) old[r][h].y = o[j + 1];
+        if (j + 2 < N) old[r][h].z = o[j + 2];
+        if (j + 3 < N) old[r][h].w = o[j + 3];
+      }
+    }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (i + r >= M) continue;
+      float* o = c + static_cast<int64_t>(i + r) * ldc;
+      const int j = j0 + frag_row(tx, 4 * h);
+      const float* a = acc[r0 + r] + 4 * h;
+      const float4 v{old[r][h].x - a[0], old[r][h].y - a[1],
+                     old[r][h].z - a[2], old[r][h].w - a[3]};
+      if (vec_c && j + 3 < N) {
+        *reinterpret_cast<float4*>(o + j) = v;
+      } else {
+        if (j < N) o[j] = v.x;
+        if (j + 1 < N) o[j + 1] = v.y;
+        if (j + 2 < N) o[j + 2] = v.z;
+        if (j + 3 < N) o[j + 3] = v.w;
+      }
+    }
+}
+
+// C[i, j] (= or, kSub, -=) the sum over q in [z kc, min(K, (z+1) kc)) of
+// A(i, q) B^T(j, q), for i < M, j < N, with z = blockIdx.z and C at
+// c + z * zs (row stride ldc).
+template <bool kAK, bool kBKm, bool kSub = false>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 sgemm_kernel(Operand A, Operand B, float* __restrict__ c, int64_t ldc,
              int64_t zs, int K, int kc, int vec_c) {
@@ -300,29 +355,37 @@ sgemm_kernel(Operand A, Operand B, float* __restrict__ c, int64_t ldc,
   cp_async_wait<0>();
 
   const int M = A.rows, N = B.rows;
+  if constexpr (kSub) {
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int i = i0 + frag_row(ty, r);
-    if (i >= M) continue;
-    float* o = c + static_cast<int64_t>(i) * ldc;
+    for (int half = 0; half < 2; ++half)
+      sub_rows(c, ldc, acc, i0 + 64 * half + 4 * ty, j0, tx, M, N, vec_c,
+               4 * half);
+  } else {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = j0 + frag_row(tx, 4 * h);
-      if (vec_c && j + 3 < N) {
-        *reinterpret_cast<float4*>(o + j) =
-            float4{acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
-                   acc[r][4 * h + 3]};
-      } else {
+    for (int r = 0; r < 8; ++r) {
+      const int i = i0 + frag_row(ty, r);
+      if (i >= M) continue;
+      float* o = c + static_cast<int64_t>(i) * ldc;
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (j + e < N) o[j + e] = acc[r][4 * h + e];
+      for (int h = 0; h < 2; ++h) {
+        const int j = j0 + frag_row(tx, 4 * h);
+        if (vec_c && j + 3 < N) {
+          *reinterpret_cast<float4*>(o + j) =
+              float4{acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
+                     acc[r][4 * h + 3]};
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j + e < N) o[j + e] = acc[r][4 * h + e];
+        }
       }
     }
   }
 }
 
-// C[i, j] = the sum over z = 0, 1, ..., nz - 1, in that order, of the
-// partial tiles part[z * M * N + i * N + j].
+// C[i, j] (= or, kSub, -=) the sum over z = 0, 1, ..., nz - 1, in that
+// order, of the partial tiles part[z * M * N + i * N + j].
+template <bool kSub = false>
 __global__ void __launch_bounds__(kSumThreads)
 split_sum_kernel(const float* __restrict__ part, int nz, float* c,
                  int64_t ldc, int M, int N) {
@@ -333,7 +396,8 @@ split_sum_kernel(const float* __restrict__ part, int nz, float* c,
        e < total; e += step) {
     float sum = part[e];
     for (int z = 1; z < nz; ++z) sum += part[z * total + e];
-    c[(e / N) * ldc + e % N] = sum;
+    float* o = c + (e / N) * ldc + e % N;
+    *o = kSub ? *o - sum : sum;
   }
 }
 
@@ -363,10 +427,35 @@ inline Operand make_operand(const float* p, int64_t ms, int64_t ks, int rows,
   return Operand{p, ms, ks, rows, vec};
 }
 
-template <bool kAK, bool kBKm>
+// The depth of each part when K is split into `splits` parts (a multiple of
+// kBK); nz is set to the number of parts that are not empty.
+inline int split_depth(int K, int splits, int& nz) {
+  int kc = (K + splits - 1) / splits;
+  kc = (kc + kBK - 1) / kBK * kBK;
+  nz = (K + kc - 1) / kc;
+  return kc;
+}
+
+// Whether C (row stride ldc) takes 16-byte accesses.
+inline int vec_out(const float* c, int64_t ldc) {
+  return ldc % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+}
+
+// The (rows x K) operand (r, q) at p[r + q ld] (MN-major) or p[r ld + q]
+// (K-major), as a caller that knows its layout builds it.
+inline Operand mn_operand(const float* p, int64_t ld, int rows) {
+  return Operand{p, 1, ld, rows,
+                 ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0};
+}
+inline Operand k_operand(const float* p, int64_t ld, int rows) {
+  return Operand{p, ld, 1, rows,
+                 ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0};
+}
+
+template <bool kAK, bool kBKm, bool kSub = false>
 int launch(const Operand& A, const Operand& B, float* c, int64_t ldc,
            int64_t zs, int K, int kc, int nz, int vec_c, cudaStream_t s) {
-  auto kernel = sgemm_kernel<kAK, kBKm>;
+  auto kernel = sgemm_kernel<kAK, kBKm, kSub>;
   const int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes)));
@@ -376,40 +465,53 @@ int launch(const Operand& A, const Operand& B, float* c, int64_t ldc,
   return static_cast<int>(cudaGetLastError());
 }
 
-// C = A B for A(i, q) = a[i * a_rs + q * a_cs] (M x K), B(q, j) = b[q * b_rs
-// + j * b_cs] (K x N) and the row-major (M, N) c; `scratch` holds splits *
-// M * N floats when splits > 1.  Returns the CUDA error (0 on success).
-inline int gemm(const float* a, int64_t a_rs, int64_t a_cs, const float* b,
-                int64_t b_rs, int64_t b_cs, float* c, int M, int N, int K,
-                float* scratch, int splits, cudaStream_t s) {
-  if (M <= 0 || N <= 0 || K <= 0 || splits < 1 ||
+// C (= or, kSub, -=) A B for operands of a known layout and C(i, j) at
+// c[i * ldc + j]; K split into `splits` parts, whose partial products go
+// to `scratch` (splits * M * N floats) and are summed in order into C.
+template <bool kAK, bool kBKm, bool kSub = false>
+int product(const Operand& A, const Operand& B, float* c, int64_t ldc, int K,
+            float* scratch, int splits, cudaStream_t s) {
+  const int M = A.rows, N = B.rows;
+  if (M <= 0 || N <= 0 || K <= 0 || splits < 1 || ldc < N ||
       (M + kBM - 1) / kBM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  int nz;
+  const int kc = split_depth(K, splits, nz);
+  if (nz == 1)
+    return launch<kAK, kBKm, kSub>(A, B, c, ldc, 0, K, kc, 1,
+                                   vec_out(c, ldc), s);
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t total = static_cast<int64_t>(M) * N;
+  const int err = launch<kAK, kBKm>(A, B, scratch, N, total, K, kc, nz,
+                                    vec_out(scratch, N), s);
+  if (err) return err;
+  int64_t blocks = (total + kSumThreads - 1) / kSumThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  split_sum_kernel<kSub><<<static_cast<int>(blocks), kSumThreads, 0, s>>>(
+      scratch, nz, c, ldc, M, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C (= or, kSub, -=) A B for A(i, q) = a[i * a_rs + q * a_cs] (M x K),
+// B(q, j) = b[q * b_rs + j * b_cs] (K x N) and C(i, j) = c[i * ldc + j]: a
+// new matrix, or a window of a larger one; each operand staged in the
+// layout its strides give.  `scratch` holds splits * M * N floats when
+// splits > 1.  Returns the CUDA error (0 on success).
+template <bool kSub = false>
+int gemm(const float* a, int64_t a_rs, int64_t a_cs, const float* b,
+         int64_t b_rs, int64_t b_cs, float* c, int64_t ldc, int M, int N,
+         int K, float* scratch, int splits, cudaStream_t s) {
   bool a_k, b_k;
   const Operand A = make_operand(a, a_rs, a_cs, M, a_k);
   const Operand B = make_operand(b, b_cs, b_rs, N, b_k);   // B^T(j, q)
-  int kc = (K + splits - 1) / splits;
-  kc = (kc + kBK - 1) / kBK * kBK;
-  const int nz = (K + kc - 1) / kc;       // every split non-empty
-  const int64_t total = static_cast<int64_t>(M) * N;
-  if (nz > 1 && scratch == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  float* out = nz == 1 ? c : scratch;
-  const int vec_c = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int64_t zs = nz == 1 ? 0 : total;
-  int err;
   if (a_k)
-    err = b_k ? launch<true, true>(A, B, out, N, zs, K, kc, nz, vec_c, s)
-              : launch<true, false>(A, B, out, N, zs, K, kc, nz, vec_c, s);
-  else
-    err = b_k ? launch<false, true>(A, B, out, N, zs, K, kc, nz, vec_c, s)
-              : launch<false, false>(A, B, out, N, zs, K, kc, nz, vec_c, s);
-  if (err || nz == 1) return err;
-  int64_t blocks = (total + kSumThreads - 1) / kSumThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  split_sum_kernel<<<static_cast<int>(blocks), kSumThreads, 0, s>>>(
-      scratch, nz, c, N, M, N);
-  return static_cast<int>(cudaGetLastError());
+    return b_k ? product<true, true, kSub>(A, B, c, ldc, K, scratch, splits,
+                                           s)
+               : product<true, false, kSub>(A, B, c, ldc, K, scratch, splits,
+                                            s);
+  return b_k ? product<false, true, kSub>(A, B, c, ldc, K, scratch, splits, s)
+             : product<false, false, kSub>(A, B, c, ldc, K, scratch, splits,
+                                           s);
 }
 
 }  // namespace sm90

@@ -42,19 +42,41 @@ def _lib() -> ctypes.CDLL:
         lib.krylov_fused_pipelined_dots.argtypes = [_P] * 5 + [
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P]
         lib.krylov_fused_pipelined_dots.restype = ctypes.c_int
-        lib.krylov_fused_gram.argtypes = [_P] * 3 + [
-            ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P]
+        lib.krylov_fused_gram.argtypes = [_P] * 4 + [
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int, _P]
         lib.krylov_fused_gram.restype = ctypes.c_int
-        lib.krylov_gram_blocks.argtypes = [ctypes.c_int, ctypes.c_int64]
-        lib.krylov_gram_blocks.restype = ctypes.c_int
+        for fn in ("krylov_gram_blocks", "krylov_gram_stream_blocks"):
+            getattr(lib, fn).argtypes = [ctypes.c_int, ctypes.c_int64]
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.krylov_gram_work_floats.restype = ctypes.c_int64
         lib.krylov_error_string.argtypes = [ctypes.c_int]
         lib.krylov_error_string.restype = ctypes.c_char_p
-        for fn in ("krylov_threads", "krylov_max_blocks"):
+        for fn in ("krylov_threads", "krylov_max_blocks",
+                   "krylov_gram_stream_max_k"):
             getattr(lib, fn).restype = ctypes.c_int
         lib.threads, lib.max_blocks = (lib.krylov_threads(),
                                        lib.krylov_max_blocks())
+        lib.gram_stream_max_k = lib.krylov_gram_stream_max_k()
         lib._declared = True
     return lib
+
+
+# One Gram workspace a stream: the ticket by which the last block of a
+# launch finds itself (it sets the ticket back to 0) and the blocks'
+# partial triangles.  Calls on one stream run in order, so they share it;
+# calls on two streams have one each and may run at the same time.  Keys
+# are (device index, raw stream handle); torch hands out streams from a
+# fixed pool a device, so the table stays small.
+_GRAM_WORK: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _gram_work(lib, device: torch.device, stream: int) -> torch.Tensor:
+    work = _GRAM_WORK.get((device.index, stream))
+    if work is None:
+        work = _GRAM_WORK[device.index, stream] = torch.zeros(
+            lib.krylov_gram_work_floats(), dtype=torch.float32,
+            device=device)
+    return work
 
 
 def _blocks(lib, n: int) -> int:
@@ -132,7 +154,9 @@ def fused_pipelined_dots(r: torch.Tensor, u: torch.Tensor, w: torch.Tensor):
 
 def fused_gram(v: torch.Tensor) -> torch.Tensor:
     """G = V·Vᵀ of a contiguous (k, n) float32 row-stack in one read of V,
-    as a (k, k) float32 tensor on V's device (exactly symmetric on CUDA)."""
+    as a (k, k) float32 tensor on V's device (exactly symmetric on CUDA:
+    one launch for k ≤ 16, on the current stream's workspace; two for
+    a larger k)."""
     if not isinstance(v, torch.Tensor):
         raise TypeError(f"v must be a tensor, got {type(v)}")
     if v.dtype != torch.float32:
@@ -146,14 +170,16 @@ def fused_gram(v: torch.Tensor) -> torch.Tensor:
         return _ref.fused_gram(v)
     lib = _lib()
     k, n = v.shape
-    blocks = lib.krylov_gram_blocks(k, n)
-    partials = torch.empty(blocks * k * k, dtype=torch.float32,
-                           device=v.device)
-    g = torch.empty((k, k), dtype=torch.float32, device=v.device)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    err = lib.krylov_fused_gram(v.data_ptr(), partials.data_ptr(),
-                                g.data_ptr(), k, n, blocks, v.device.index,
-                                stream)
+    dev = v.device
+    g = torch.empty((k, k), dtype=torch.float32, device=dev)
+    partials = None if k <= lib.gram_stream_max_k else torch.empty(
+        lib.krylov_gram_blocks(k, n) * k * k, dtype=torch.float32,
+        device=dev)
+    stream = _build.current_stream(dev)
+    err = lib.krylov_fused_gram(
+        v.data_ptr(), _gram_work(lib, dev, stream).data_ptr(),
+        None if partials is None else partials.data_ptr(), g.data_ptr(), k,
+        n, dev.index, stream)
     _build.raise_on(err, lib.krylov_error_string, "fused_gram")
     LAUNCHES["fused_gram"] += 1
     return g

@@ -42,11 +42,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library(_LIB_NAME)
     if not getattr(lib, "_declared", False):
         lib.qr_panel_update.argtypes = [_P, _I64, _I64, _P, _P, _I64,
-                                        ctypes.c_int, _P, _P, _P,
-                                        ctypes.c_int, ctypes.c_int, _P]
+                                        ctypes.c_int, _P, _I64,
+                                        ctypes.c_int, _P]
         lib.qr_panel_update.restype = ctypes.c_int
-        lib.qr_splits.argtypes = [_I64, _I64, _I64, ctypes.c_int]
-        lib.qr_splits.restype = ctypes.c_int
+        lib.qr_workspace_floats.argtypes = [_I64, _I64, _I64, ctypes.c_int,
+                                            ctypes.c_int]
+        lib.qr_workspace_floats.restype = _I64
+        lib.qr_plan_parts.argtypes = [_I64, _I64, _I64, ctypes.c_int,
+                                      ctypes.c_int, _P, _P]
+        lib.qr_plan_parts.restype = ctypes.c_int
         lib.qr_error_string.argtypes = [ctypes.c_int]
         lib.qr_error_string.restype = ctypes.c_char_p
         lib._declared = True
@@ -81,6 +85,21 @@ def _check(a: torch.Tensor, v: torch.Tensor, t: torch.Tensor, k: int,
                          f"k={k}, got {tuple(v.shape)}")
 
 
+def plan_parts(m: int, n: int, k: int, nb: int,
+               device: torch.device) -> tuple[int, int]:
+    """The parts that hold a sum in the kernel's update at step ``k`` on the
+    CUDA ``device``: W = VᵀA's (its depth R = m − k split by the card's SM
+    count) and A −= V·Y's (its depth nb split); (0, 0) at the last step."""
+    lib = _lib()
+    w, u = ctypes.c_int(), ctypes.c_int()
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    err = lib.qr_plan_parts(m, n, k, nb, index, ctypes.byref(w),
+                            ctypes.byref(u))
+    _build.raise_on(err, lib.qr_error_string, "qr_plan_parts")
+    return w.value, u.value
+
+
 def qr_panel_update(a: torch.Tensor, v: torch.Tensor, t: torch.Tensor,
                     k: int, *, nb: int) -> torch.Tensor:
     """One QR trailing update, in place: A ← A − V·(Tᵀ·(Vᵀ·A)) on rows
@@ -95,18 +114,16 @@ def qr_panel_update(a: torch.Tensor, v: torch.Tensor, t: torch.Tensor,
     if cols == 0:
         return a
     lib = _lib()
-    splits = lib.qr_splits(m, n, k, nb)
+    dev = a.device
+    floats = lib.qr_workspace_floats(m, n, k, nb, dev.index)
+    if floats < 0:
+        raise RuntimeError("qr_panel_update: no workspace size (a CUDA "
+                           "error, or more rows than the grid takes)")
     v, t = v.contiguous(), t.contiguous()
-    w_part = torch.empty(splits * nb * cols if splits > 1 else 0,
-                         dtype=a.dtype, device=a.device)
-    w = torch.empty(nb * cols, dtype=a.dtype, device=a.device)
-    y = torch.empty_like(w)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    ws = torch.empty(floats, dtype=a.dtype, device=dev)
     err = lib.qr_panel_update(a.data_ptr(), m, n, v.data_ptr(), t.data_ptr(),
-                              k, nb,
-                              w_part.data_ptr() if splits > 1 else None,
-                              w.data_ptr(), y.data_ptr(), splits,
-                              a.device.index, stream)
+                              k, nb, ws.data_ptr(), floats, dev.index,
+                              _build.current_stream(dev))
     _build.raise_on(err, lib.qr_error_string, "qr_panel_update")
     LAUNCHES["qr_panel_update"] += 1
     return a

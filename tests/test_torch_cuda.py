@@ -333,10 +333,14 @@ def _qr_step(m, n, nb, k, dev):
 
 
 # (m, n, nb, k): small and ragged-in-rows shapes, then the least-squares
-# path's m = 32768, n = 8192, nb = 128 at k = 0, n/2 and n − 2nb
+# path's m = 32768, n = 8192, nb = 128 at k = 0, n/2 and n − 2nb; then a
+# window ragged in rows and columns (984 x 496), W = VᵀA split over
+# K = 4096 (2 output tiles), and A −= V·Y split over K = nb = 1024 (128
+# output tiles), its parts subtracted in order by a second launch
 QR_CASES = [(96, 64, 16, 0), (96, 64, 16, 32), (96, 80, 16, 48),
             (1000, 256, 128, 0), (32768, 8192, 128, 0),
-            (32768, 8192, 128, 4096), (32768, 8192, 128, 7936)]
+            (32768, 8192, 128, 4096), (32768, 8192, 128, 7936),
+            (1000, 520, 8, 16), (4096, 256, 64, 0), (2048, 2048, 1024, 0)]
 
 
 @pytest.mark.cuda
@@ -355,10 +359,45 @@ def test_qr_panel_update_kernel_matches_plain_version(cuda_device, m, n, nb,
     want = ref.qr_panel_update(a.clone(), v, t, k, nb=nb)
     assert torch.equal(got, again)
     assert torch.equal(got[:, :k + nb], a[:, :k + nb])
+    assert torch.equal(got[:k], a[:k])
     change = float((want - a).abs().max())
     assert change > 0
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * change)
     assert qr_fused.LAUNCHES["qr_panel_update"] == before + 2
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` whose base is 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,nb,k,layout", [
+    (1000, 256, 16, 32, "unaligned base"), (1000, 250, 10, 20, "n % 4 = 2"),
+    (700, 390, 13, 13, "n % 4 = 2")])
+def test_qr_panel_update_kernel_on_an_unaligned_window(cuda_device, m, n, nb,
+                                                       k, layout):
+    """A window whose base is not 16-byte aligned (A and V 4 bytes past a
+    boundary) or whose row stride is not a multiple of 4 floats takes the
+    subtracting epilogue's 4-byte accesses (and V's 4-byte copies): held
+    as on aligned windows, bitwise on reruns, nothing written outside the
+    window."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, v, t = _qr_step(m, n, nb, k, cuda_device)
+    fresh = _unaligned if layout == "unaligned base" else torch.clone
+    if layout == "unaligned base":
+        v = _unaligned(v)
+        assert a.data_ptr() % 16 == 0 and fresh(a).data_ptr() % 16 == 4
+    got = qr_fused.qr_panel_update(fresh(a), v, t, k, nb=nb)
+    again = qr_fused.qr_panel_update(fresh(a), v, t, k, nb=nb)
+    want = ref.qr_panel_update(a.clone(), v, t, k, nb=nb)
+    assert torch.equal(got, again)
+    assert torch.equal(got[:, :k + nb], a[:, :k + nb])
+    assert torch.equal(got[:k], a[:k])
+    change = float((want - a).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * change)
 
 
 @pytest.mark.cuda
@@ -563,6 +602,93 @@ def test_gram_kernel_matches_plain_version(cuda_device, k, n):
     want = ref.fused_gram(v)
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-5 * float(want.abs().max()))
+
+
+def _gram_close(got, v):
+    want = ref.fused_gram(v)
+    assert torch.equal(got, got.T)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(280001, 0), (280002, 0), (280003, 0),
+                                      (280000, 1)])
+@pytest.mark.parametrize("k", [5, 9])
+def test_gram_kernel_on_ragged_columns(cuda_device, k, n, offset):
+    """n ≡ 1, 2, 3 (mod 4), or V 4 bytes past a 16-byte boundary: the
+    one-launch kernel's 4-byte loads, the last quad's missing columns
+    zero; held as above, bitwise on reruns."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + k)
+    v = torch.randn(k, n, generator=g, device=cuda_device)
+    if offset:
+        buf = torch.empty(k * n + offset, device=cuda_device)
+        v = buf[offset:].view(k, n).copy_(v)
+    got = krylov_fused.fused_gram(v)
+    assert torch.equal(got, krylov_fused.fused_gram(v))
+    _gram_close(got, v)
+
+
+@pytest.mark.cuda
+def test_gram_ticket_resets_between_calls(cuda_device):
+    """Calls at different n (16, 264 and 1 blocks) and k back to back, with
+    no synchronisation between them, each find their own last block: the
+    ticket is back at 0 after every launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    vs = [torch.randn(k, n, generator=g, device=cuda_device)
+          for k, n in ((9, 16384), (9, 1 << 21), (5, 7), (12, 300000))]
+    vs.insert(3, vs[0])
+    gots = [krylov_fused.fused_gram(v) for v in vs]
+    torch.cuda.synchronize()
+    for got, v in zip(gots, vs):
+        _gram_close(got, v)
+    assert torch.equal(gots[0], gots[3])
+
+
+@pytest.mark.cuda
+def test_gram_kernel_on_two_streams_in_turn(cuda_device):
+    """Calls on two streams that wait on each other in turn, each stream on
+    its own workspace: every result bitwise equal to the default
+    stream's."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    v = torch.randn(9, 1 << 20, generator=g, device=cuda_device)
+    want = krylov_fused.fused_gram(v)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    prev, gots = torch.cuda.current_stream(cuda_device), []
+    for i in range(4):
+        s = streams[i % 2]
+        s.wait_stream(prev)
+        with torch.cuda.stream(s):
+            gots.append(krylov_fused.fused_gram(v))
+        prev = s
+    torch.cuda.synchronize()
+    for got in gots:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gram_kernel_on_two_streams_at_once(cuda_device):
+    """Calls on two streams that do not wait on each other, at shapes of
+    16, 264 and 132 blocks: each stream has a ticket and partials of its
+    own, so every result is bitwise what the default stream gives."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    vs = [torch.randn(k, n, generator=g, device=cuda_device)
+          for k, n in ((9, 16384), (9, 1 << 21), (5, 1 << 20), (12, 300000))]
+    wants = [krylov_fused.fused_gram(v) for v in vs]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    gots = [[], []]
+    for _ in range(8):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                gots[i] += [krylov_fused.fused_gram(v)
+                            for v in (vs if i == 0 else vs[::-1])]
+    torch.cuda.synchronize()
+    for i in range(2):
+        order = wants if i == 0 else wants[::-1]
+        for j, got in enumerate(gots[i]):
+            assert torch.equal(got, order[j % len(vs)])
 
 
 @pytest.mark.cuda

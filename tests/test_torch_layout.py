@@ -25,7 +25,8 @@ from repro_torch.sparse import BSR, ELL, problems
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "attention_probe.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "attention_probe.py",
+       ROOT / "kernel_compare.py"]
 
 
 def _imported_modules(path: Path):
@@ -176,3 +177,12 @@ def test_attention_probe_variants_cut_the_kernel_source():
     texts = attention_probe.variants(src)
     assert texts["full"] == src
     assert len(set(texts.values())) == len(texts) == 7
+
+
+def test_kernel_compare_refuses_a_tree_without_chip_smoke(tmp_path):
+    """``kernel_compare.py`` runs another checkout's phases: a directory
+    without ``chip_smoke.py`` is refused before anything is built."""
+    proc = subprocess.run([sys.executable, str(ROOT / "kernel_compare.py"),
+                           str(tmp_path)], capture_output=True, text=True)
+    assert proc.returncode == 2
+    assert "no chip_smoke.py" in proc.stderr

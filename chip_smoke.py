@@ -16,16 +16,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    SXM);
 3b. direct kernels, at the direct path's n = 16384 float32, nb = 128: the
    LU and Cholesky panel updates at k ∈ {0, n/2, n − 2nb} (on the change
-   they make: atol 1e-5 · its largest entry, rtol 2.5e-7), and the
-   triangular solve for m ∈ {1, 128} right-hand sides on the lower, upper
-   and transposed triangles of real factors, and for m ∈ {1, 3} on random
-   well-conditioned triangles at n = 20480 (160 block rows, more than the
-   card's SMs) (rtol 1e-3, atol 1e-3 · max|x|), each bitwise-repeatable
-   and timed beside its plain version, its bound — max(flops ÷ 67 TFLOP/s
-   float32, bytes ÷ 3.35 TB/s) — and, for the solve,
-   ``torch.linalg.solve_triangular``; each solve's diagonal inversion and
-   substitution kernel timed apart, and the CUDA kernels of one solve
-   counted by ``torch.profiler`` (the substitution must be one launch);
+   they make: atol 1e-5 · its largest entry, rtol 2.5e-7), the Cholesky
+   update also on an exactly symmetric A ((a + aᵀ)/2: its trailing block
+   must come out bitwise symmetric) and on an A with a Gaussian upper
+   triangle added (held as above); each panel update's CUDA kernels a call
+   and their device µs (``torch.profiler``), and the achieved rate of its
+   K = nb update kernel; the SASS of ``factor_fused`` must hold no
+   tensor-core instruction; and the triangular solve for m ∈ {1, 128}
+   right-hand sides on the lower, upper and transposed triangles of real
+   factors, and for m ∈ {1, 3} on random well-conditioned triangles at
+   n = 20480 (160 block rows, more than the card's SMs) (rtol 1e-3, atol
+   1e-3 · max|x|), each bitwise-repeatable and timed beside its plain
+   version, its bound — max(flops ÷ 67 TFLOP/s float32, bytes ÷ 3.35
+   TB/s), with the Cholesky update's least work counted on the tiles on
+   and below the diagonal (its product is symmetric), so its bytes bound
+   it — and, for the solve, ``torch.linalg.solve_triangular``; for the
+   panel updates ``library_ms`` is null (no single PyTorch call) and
+   ``composed_ms`` the two cuBLAS calls of the same step
+   (``solve_triangular``, then ``addmm_`` with alpha = −1 into A22); each
+   solve's diagonal inversion and substitution kernel timed apart, and the
+   CUDA kernels of one solve counted by ``torch.profiler`` (the
+   substitution must be one launch);
 4. main path: ``api.solve(..., backend="cuda")`` at n = 16384 float32 for
    cg, pipelined_cg (SPD ``a aᵀ/n + 4I``), bicg, bicgstab, gmres (``a + nI``)
    and cg with jacobi / block_jacobi: converged, true relative residual
@@ -617,11 +628,52 @@ def _panel_cost(kind: str, n: int, nb: int, k: int) -> tuple[float, float]:
     """Flops and bytes of one panel update (each input read once, each
     output written once): the nb-wide solve of the m = n − k − nb
     off-diagonal columns (rows) plus the rank-nb update of the m × m
-    trailing block, both triangles."""
+    trailing block, both triangles read and written.  LU's update is the
+    whole product; Cholesky's is symmetric, so its least work is the
+    entries on and below the diagonal, m (m + 1) / 2 of 2 nb flops."""
     m = n - k - nb
-    flops = 2.0 * m * nb * nb + 2.0 * m * m * nb
-    panel = 3 if kind == "lu_panel_update" else 2   # R, U12, L21 / C, L21
+    if kind == "lu_panel_update":
+        flops = 2.0 * m * nb * nb + 2.0 * m * m * nb
+        panel = 3                                   # R, U12, L21
+    else:
+        flops = 2.0 * m * nb * nb + float(m) * (m + 1) * nb
+        panel = 2                                   # C, L21
     return flops, 4.0 * (nb * nb + panel * m * nb + 2 * m * m)
+
+
+def _composed_step(torch, kind: str, w, k: int, nb: int):
+    """The panel update as two cuBLAS calls on ``w`` in place (the
+    yardstick ``composed_ms``; the port never calls them): LU's U12 =
+    ``solve_triangular(L11, A12)`` then ``A22.addmm_(L21, U12, alpha=-1)``;
+    Cholesky's L21 = ``solve_triangular(Lkkᵀ, C, left=False)`` then
+    ``A22.addmm_(L21, L21ᵀ, alpha=-1)``."""
+    diag, a22 = w[k:k + nb, k:k + nb], w[k + nb:, k + nb:]
+    if kind == "lu_panel_update":
+        a12, l21 = w[k:k + nb, k + nb:], w[k + nb:, k:k + nb]
+
+        def step():
+            u12 = torch.linalg.solve_triangular(diag, a12, upper=False,
+                                                unitriangular=True)
+            a22.addmm_(l21, u12, alpha=-1.0)
+    else:
+        c = w[k + nb:, k:k + nb]
+
+        def step():
+            l21 = torch.linalg.solve_triangular(diag.T, c, upper=True,
+                                                left=False)
+            a22.addmm_(l21, l21.T, alpha=-1.0)
+    return step
+
+
+def _update_us(events) -> float:
+    """Mean device µs of the subtracting mainloop launch (the K = nb
+    update; its kSub template argument is true) among ``events``."""
+    times = [us for name, us in events if "sgemm_kernel<" in name and
+             name.replace(" ", "").split("sgemm_kernel<")[1].split(",")[2]
+             == "true"]
+    check(bool(times), "no subtracting mainloop launch among the panel "
+                       f"update's kernels: {sorted({n for n, _ in events})}")
+    return statistics.fmean(times)
 
 
 def _trsm_cases(torch, n: int):
@@ -739,10 +791,36 @@ def _trsm_row(torch, label: str, t, upper: bool, unit: bool, b) -> dict:
             "library_ms": library_ms}
 
 
+def _cholesky_shapes(torch, kernel, plain, base, g, k: int, nb: int):
+    """The Cholesky update on an exactly symmetric A ((a + aᵀ)/2), whose
+    trailing block must come out bitwise symmetric, and on A with a
+    Gaussian upper triangle added, held against its plain version: each
+    mirrored tile reads its own A."""
+    a, linv = _panel_step(torch, "cholesky_panel_update",
+                          (base + base.T) / 2, g, k, nb)
+    tail = kernel(a, linv, k, nb=nb)[k + nb:, k + nb:]
+    check(torch.equal(tail, tail.T), f"cholesky_panel_update k={k}: the "
+          "trailing block of a symmetric A is not bitwise symmetric")
+    del a, tail
+    a, linv = _panel_step(torch, "cholesky_panel_update", base + torch.triu(
+        torch.randn(base.shape, generator=g, device=base.device), 1), g, k,
+        nb)
+    got = kernel(a.clone(), linv, k, nb=nb)
+    want = plain(a.clone(), linv, k, nb=nb)
+    ok, atol = panel_update_close(torch, got, want, a)
+    err = float((got - want).abs().max())
+    check(ok, f"cholesky_panel_update k={k}, unsymmetric A: kernel and plain "
+              f"version differ (max abs err {err}, atol {atol})")
+    print(f"[direct-kernel] cholesky_panel_update k={k} symmetric A: "
+          f"trailing block bitwise symmetric; unsymmetric A: "
+          f"max_abs_err={err:.3e} atol={atol:.3e}")
+
+
 def phase_direct_kernels(torch) -> dict:
     from repro_torch.kernels import factor_fused, ref
     n, nb = N_MAIN, NB_DIRECT
     record = {}
+    _gemm_sass(("factor_fused",), "direct-kernel")
     for kind in ("lu_panel_update", "cholesky_panel_update"):
         kernel, plain = getattr(factor_fused, kind), getattr(ref, kind)
         base, g = _panel_base(torch, kind, n)
@@ -758,19 +836,36 @@ def phase_direct_kernels(torch) -> dict:
             check(ok, f"{kind} k={k}: kernel and plain version differ (max "
                       f"abs err {err}, atol {atol})")
             del got, again, want
+            if kind == "cholesky_panel_update":
+                _cholesky_shapes(torch, kernel, plain, base, g, k, nb)
             w = a                  # timed calls update w in place
+            events = _cuda_kernel_events(
+                torch, lambda: kernel(w, linv, k, nb=nb), PROFILED_CALLS)
             ms = time_ms(torch, lambda: kernel(w, linv, k, nb=nb),
                          DIRECT_TIMED_LAUNCHES)
             plain_ms = time_ms(torch, lambda: plain(w, linv, k, nb=nb),
                                DIRECT_TIMED_LAUNCHES)
+            composed_ms = time_ms(torch, _composed_step(torch, kind, w, k,
+                                                        nb),
+                                  DIRECT_TIMED_LAUNCHES)
             flops, nbytes = _panel_cost(kind, n, nb, k)
             bound_ms, bound_by = _bound(flops, nbytes)
+            m = n - k - nb
+            update_flops = (2.0 * m * m * nb if kind == "lu_panel_update"
+                            else float(m) * (m + 1) * nb)
+            update_us = _update_us(events)
             print(f"[direct-kernel] {kind} n={n} nb={nb} k={k} "
                   f"max_abs_err={err:.3e} bitwise_rerun=True ms={ms:.6f} "
                   f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.6f} "
                   f"bound_by={bound_by} flops={flops:.6e} bytes={nbytes:.6e} "
                   f"achieved_tflops={flops / ms / 1e9:.3f} "
-                  "library_ms=null (no single PyTorch call computes it)")
+                  "library_ms=null (no single PyTorch call computes it) "
+                  f"composed_ms={composed_ms:.6f} (solve_triangular + "
+                  f"addmm_, cuBLAS) "
+                  f"cuda_kernels_a_call={len(events) / PROFILED_CALLS:g} "
+                  f"kernel_device_us={_kernel_us(events)} "
+                  f"update_device_us={update_us:.3f} "
+                  f"update_tflops={update_flops / update_us / 1e6:.3f}")
             if k == 0:             # the record: the largest step
                 record[kind] = {"max_abs_err": err, "ms": ms,
                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1253,16 +1348,18 @@ def _qr_update_cost(m: int, n: int, nb: int, k: int) -> tuple[float, float]:
             4.0 * (2 * r * c + r * nb + nb * nb))
 
 
-def _gemm_sass() -> None:
-    """Kernels 7 and 9 stay on the float32 pipes: the count of tensor-core
-    instructions (``HMMA``, ``HGMMA``) in the SASS (``cuobjdump``) of the
-    ``gemm`` and ``qr_fused`` libraries must be 0; each kernel's ``FFMA``
-    and local-memory (``LDL`` / ``STL``, spill) counts are printed beside."""
+def _gemm_sass(libs, tag: str) -> None:
+    """Kernels 4, 5, 7 and 9 stay on the float32 pipes: the count of
+    tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS
+    (``cuobjdump``) of each library of ``libs`` (``factor_fused``,
+    ``gemm``, ``qr_fused``) must be 0; each kernel's ``FFMA`` and
+    local-memory (``LDL`` / ``STL``, spill) counts are printed beside,
+    on lines tagged ``[tag]``."""
     from repro_torch.kernels import _build
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
-    check(cuobjdump.exists(), f"no cuobjdump at {cuobjdump}: kernels 7 "
-                              "and 9's SASS cannot be checked")
-    for lib in ("gemm", "qr_fused"):
+    check(cuobjdump.exists(), f"no cuobjdump at {cuobjdump}: the float32 "
+                              "mainloop's SASS cannot be checked")
+    for lib in libs:
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(_build.build(lib))],
                               capture_output=True, text=True)
@@ -1271,7 +1368,7 @@ def _gemm_sass() -> None:
         lines = sass.stdout.splitlines()
         tensor = sum(1 for line in lines
                      if "HMMA" in line or "HGMMA" in line)
-        print(f"[ls-kernel] {lib}.cu SASS: HMMA/HGMMA instructions {tensor}")
+        print(f"[{tag}] {lib}.cu SASS: HMMA/HGMMA instructions {tensor}")
         counts, name = {}, None    # FFMA and local loads / stores a kernel
         for line in lines:
             if "Function :" in line:
@@ -1281,7 +1378,7 @@ def _gemm_sass() -> None:
                 counts[name][0] += "FFMA" in line
                 counts[name][1] += "LDL" in line or "STL" in line
         for name, (ffma, local) in counts.items():
-            print(f"[ls-kernel]   {name[:70]}: FFMA {ffma}, LDL/STL {local}")
+            print(f"[{tag}]   {name[:70]}: FFMA {ffma}, LDL/STL {local}")
         check(tensor == 0, f"{lib}.cu's SASS holds {tensor} tensor-core "
                            "instructions")
 
@@ -1342,7 +1439,7 @@ def phase_ls_kernels(torch) -> dict:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms}
         del a, w, win
-    _gemm_sass()
+    _gemm_sass(("gemm", "qr_fused"), "ls-kernel")
     # the GEMM at the unfused QR's three products at k = 0 (V is the
     # window's V, the first panel of the matrix) and at the unfused LU's
     # trailing update at n = 16384, k = 0 (views of one matrix)

@@ -7,37 +7,70 @@
 //   * cholesky_panel_update (L21 = C Lkk^-T into the panel column block,
 //                            A22 -= L21 L21^T, both triangles)
 //
-// Bound: with m = n - k - nb trailing rows, one step does 2 m^2 nb + 2 m nb^2
-// flops over about (2 m^2 + 3 m nb) * 4 bytes, ~32 flops per byte at nb = 128:
-// above the H100's 20 flops per byte (67 TFLOP/s float32 outside the tensor
-// cores over 3.35 TB/s), so the float32 pipes bound it.  The products run in
-// full float32 with float32 accumulation: no TF32, no tensor cores, since
-// the reference holds float32 factorizations to float32 products.
+// Bound, with m = n - k - nb trailing rows:
+//   * LU: 2 m^2 nb + 2 m nb^2 flops over (nb^2 + 3 m nb + 2 m^2) * 4 bytes,
+//     ~32 flops a byte at nb = 128: above the H100's 20 (67 TFLOP/s float32
+//     outside the tensor cores over 3.35 TB/s), so the float32 pipes bound
+//     it (1.02 ms at k = 0, n = 16384);
+//   * Cholesky: the update's product is symmetric, so its least work is the
+//     tiles on and below the diagonal, m (m + 1) nb + 2 m nb^2 flops, over
+//     (nb^2 + 2 m nb + 2 m^2) * 4 bytes (both triangles of A22 read and
+//     written): ~16 flops a byte, so the bytes bound it (0.64 ms at k = 0).
+// The products run in full float32 with float32 accumulation: no TF32, no
+// tensor cores, since the reference holds float32 factorizations to float32
+// products.
 //
 // Design.  The TPU kernel runs a fixed (n/nb) x (n/nb) grid over the whole
-// matrix with the step offset k as a scalar, and masks the tiles outside the
-// active window; every tile recomputes its slice of U12.  Here k is a host
-// integer, so each launch covers only the active window, and each step is
-// two launches of one tiled kernel:
+// matrix with the step offset k as a scalar, masks the tiles outside the
+// active window, recomputes its slice of the panel solve in every tile, and
+// computes both triangles of Cholesky's update.  Here k is a host integer,
+// so each launch covers only the active window, and each step is two
+// launches of the multistage float32 mainloop of tile_gemm_sm90.cuh (the
+// layouts are known, so its products are called with them):
 //   1. the panel solve (U12 = Linv R, or L21 = C Linv^T) into a scratch
-//      buffer;
-//   2. the rank-nb update of the trailing block, reading the panel solve
-//      from the scratch buffer;
+//      buffer: C K-major, R MN-major (row stride n), Linv read in the
+//      column-major layout the factorizations' triangular solve gives it
+//      (MN-major as LU's A, as Cholesky's B^T), so no step copies it;
+//   2. the rank-nb update of the trailing block, in place, reading the
+//      panel solve from the scratch: LU's A22 -= L21 U12 on the subtracting
+//      epilogue (L21 K-major in the matrix, U12 MN-major), one block a
+//      128 x 128 tile; Cholesky's A22 -= L21 L21^T on the symmetric
+//      variant, one block a tile on or below the diagonal, which subtracts
+//      its product P from its tile and P^T from the mirrored tile (staged
+//      transposed through shared memory, 16-byte accesses along rows):
+//      half the flops, and both triangles bitwise as the full product
+//      writes them, since element (j, i) of L21 L21^T sums fmaf(L[j, q],
+//      L[i, q]) in the same ascending q as P's element (i, j) sums
+//      fmaf(L[i, q], L[j, q]).  Each mirror reads its own tile of A, so A
+//      need not be symmetric; diagonal tiles are computed whole;
 // then one strided device copy puts the panel solve in its place in the
 // matrix.  The scratch keeps every block from reading values that another
 // block is writing, so the step works in place on the working matrix.
-// Each 128 x 128 output tile belongs to one block, which sums its products
-// in a fixed order: no atomics, and reruns are bitwise equal.  The tile is
-// the SIMT GEMM of tile_gemm.cuh (8 x 8 outputs a thread, the next
-// slice's loads in flight while the current one multiplies), unsplit: the
-// trailing block's tiles fill the card.  TMA and wgmma are left for later
-// work.
+// K = nb is not split (nb < 512): each output tile belongs to one block,
+// which sums its products in a fixed order, with no atomics, so reruns are
+// bitwise equal.  At nb = 128 every operand and the window take 16-byte
+// copies and accesses (k a multiple of nb, n of nb); other nb take the
+// mainloop's 4-byte path where they must.
 
-#include "tile_gemm.cuh"
+#include "tile_gemm_sm90.cuh"
 
 namespace {
 
-using tile::View;
+// C -= A A^T for the K-major (M x K) operand A and C(i, j) at c[i * ldc +
+// j], i, j < M: one block a tile on and below the diagonal, each tile
+// below it also subtracted, transposed, from its mirror, so both triangles
+// are written as the full product would write them, in about half its
+// flops.
+// Returns the CUDA error (0 on success).
+int syrk_sub(const sm90::Operand& A, float* c, int64_t ldc, int K,
+             cudaStream_t s) {
+  const int64_t t = (static_cast<int64_t>(A.rows) + sm90::kBM - 1) /
+                    sm90::kBM;
+  if (A.rows <= 0 || K <= 0 || ldc < A.rows || t * (t + 1) / 2 > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return sm90::launch<true, true, true, true>(A, A, c, ldc, 0, K, K, 1,
+                                              sm90::vec_out(c, ldc), s);
+}
 
 int check_args(int device, int64_t n, int64_t k, int nb) {
   if (n <= 0 || nb <= 0 || k < 0 || k + nb > n || n > (1LL << 30))
@@ -53,9 +86,15 @@ const char* factor_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The lower tile (*ti, *tj) that block b of the symmetric update owns.
+void factor_lower_tile(int64_t b, int* ti, int* tj) {
+  sm90::lower_tile(b, *ti, *tj);
+}
+
 // One LU step on the row-major (n, n) matrix `a`, in place.  `linv` is the
-// (nb, nb) inverse of the unit-lower diagonal block at (k, k); `u` is
-// scratch of nb * (n - k - nb) floats.  Launches nothing when k + nb = n.
+// (nb, nb) inverse of the unit-lower diagonal block at (k, k), column-major
+// (Linv(i, q) at linv[i + q nb], as torch.linalg.solve_triangular returns
+// it); `u` is scratch of nb * (n - k - nb) floats.  Launches nothing when k + nb = n.
 // Returns the CUDA error (0 on success).
 int factor_lu_panel_update(float* a, int64_t n, const float* linv, int64_t k,
                            int nb, float* u, int device, void* stream) {
@@ -66,13 +105,15 @@ int factor_lu_panel_update(float* a, int64_t n, const float* linv, int64_t k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* row = a + k * n + k + nb;      // panel row block, trailing columns
   // U12 = Linv R into the scratch
-  err = tile::gemm<false>(View{linv, nb, 1}, View{row, n, 1}, u, m, nb, m,
-                          nb, s);
+  err = sm90::product<false, false>(sm90::mn_operand(linv, nb, nb),
+                                    sm90::mn_operand(row, n, m), u, m, nb,
+                                    nullptr, 1, s);
   if (err) return err;
-  // A22 -= L21 U12
+  // A22 -= L21 U12, in place
   float* l21 = a + (k + nb) * n + k;
-  err = tile::gemm<true>(View{l21, n, 1}, View{u, m, 1}, l21 + nb, n, m, m,
-                         nb, s);
+  err = sm90::product<true, false, true>(sm90::k_operand(l21, n, m),
+                                         sm90::mn_operand(u, m, m), l21 + nb,
+                                         n, nb, nullptr, 1, s);
   if (err) return err;
   // U12 into the panel row block (after the solve has read all of R)
   return static_cast<int>(cudaMemcpy2DAsync(
@@ -82,7 +123,7 @@ int factor_lu_panel_update(float* a, int64_t n, const float* linv, int64_t k,
 
 // One Cholesky step on the row-major (n, n) matrix `a`, in place.  `linv` is
 // the (nb, nb) inverse of the lower Cholesky factor of the diagonal block at
-// (k, k); `l` is scratch of (n - k - nb) * nb floats.
+// (k, k), column-major; `l` is scratch of (n - k - nb) * nb floats.
 int factor_cholesky_panel_update(float* a, int64_t n, const float* linv,
                                  int64_t k, int nb, float* l, int device,
                                  void* stream) {
@@ -92,14 +133,13 @@ int factor_cholesky_panel_update(float* a, int64_t n, const float* linv,
   if (m == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* col = a + (k + nb) * n + k;    // panel column block, rows below
-  // L21 = C Linv^T into the scratch: B(q, j) = linv[j, q]
-  err = tile::gemm<false>(View{col, n, 1}, View{linv, 1, nb}, l, nb, m, nb,
-                          nb, s);
+  // L21 = C Linv^T into the scratch: B^T(j, q) = Linv(j, q)
+  err = sm90::product<true, false>(sm90::k_operand(col, n, m),
+                                   sm90::mn_operand(linv, nb, nb), l, nb, nb,
+                                   nullptr, 1, s);
   if (err) return err;
-  // A22 -= L21 L21^T over the whole trailing block (both triangles, as the
-  // TPU kernel does): B(q, j) = l[j, q]
-  err = tile::gemm<true>(View{l, nb, 1}, View{l, 1, nb}, col + nb, n, m, m,
-                         nb, s);
+  // A22 -= L21 L21^T: the lower tiles, each mirrored
+  err = syrk_sub(sm90::k_operand(l, nb, m), col + nb, n, nb, s);
   if (err) return err;
   // L21 into the panel column block
   return static_cast<int>(cudaMemcpy2DAsync(

@@ -1,7 +1,17 @@
-// The float32 GEMM mainloop of gemm.cu (kernel 7) and qr_fused.cu (kernel
-// 9) for Hopper: C = A B, or C -= A B in place, on strided views, for any
-// M, N, K, in full float32 on the float32 pipes (no TF32, no tensor cores),
-// with a split of K that stays deterministic.
+// The float32 GEMM mainloop of the port's dense products on Hopper: gemm.cu
+// (kernel 7, src/repro/kernels/gemm.py matmul), qr_fused.cu (kernel 9,
+// qr_fused.py qr_panel_update) and factor_fused.cu (kernels 4 and 5,
+// factor_fused.py lu_panel_update and cholesky_panel_update).  C = A B, or
+// C -= A B in place, on strided views, for any M, N, K, in full float32 on
+// the float32 pipes (no TF32, no tensor cores), with a split of K that stays
+// deterministic; and C -= A A^T on the lower tiles only, mirrored.
+//
+// Bound: a product of depth K does 2 K flops an output; with K = 128 (the
+// panel updates, kernel 9's A -= V Y) and the output read and written once
+// that is ~32 flops a byte, above the H100's 20 (67 TFLOP/s float32 outside
+// the tensor cores over 3.35 TB/s): the float32 pipes bound it, and the
+// design keeps them fed.  The symmetric update does half the flops over the
+// same bytes (~16 a byte): there the bytes bound it.
 //
 // A block of 256 threads owns a 128 x 128 tile of C; each thread 8 x 8 of
 // it, as 2 x 2 fragments of 4 x 4 (rows 4ty .. 4ty + 3 and 64 + the same,
@@ -32,6 +42,22 @@
 // ragged right edge) 4 bytes at a time; the subtracting epilogue loads a
 // half of its rows (4 x 2 float4) before it stores any.
 //
+// The symmetric update (kSym, Cholesky's A22 -= L21 L21^T) launches one
+// block for each of the T (T + 1) / 2 tiles on and below the diagonal of
+// T x T tiles, each block finding its tile (i, j), i >= j, from its index.
+// It runs the same mainloop with A = B = the K-major L21, subtracts its
+// product P from tile (i, j) and, for i > j, P^T from tile (j, i), staged
+// transposed through the (then idle) ring so that the mirror's reads and
+// writes stay 16 bytes wide along rows; a diagonal tile is computed whole.
+// Tile (j, i)'s own C is read, so C need not be symmetric.  The mirror is
+// bitwise what the full product would write there: element (j, i) of
+// L21 L21^T is the sum over ascending q of fmaf(L[j, q], L[i, q], acc), and
+// fmaf(a, b, c) = fmaf(b, a, c), so it equals P^T's element; a symmetric C
+// stays bitwise symmetric.  Only factor_fused.cu instantiates it (its
+// launcher lives there): a kernel that code in this header instantiated
+// would be emitted by gemm.cu and qr_fused.cu too, and their own kernels
+// then compile to other code.
+//
 // The sums run in a fixed order (ascending q within a split), without
 // atomics, so reruns are bitwise equal.  Few output tiles with a long K
 // (QR's V^T A: 63 tiles at n = 8192) would leave the card idle, so K is
@@ -40,6 +66,7 @@
 // in the order z = 0, 1, ... into C (=, or -= for kSub).
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -54,6 +81,8 @@ constexpr int kOperand = kBM * kBK; // floats of one operand's slice
 constexpr int kMinSplitDepth = 512; // least K a split keeps
 constexpr int kSumThreads = 256;
 constexpr size_t kSmemBytes = sizeof(float) * kStages * 2 * kOperand;
+static_assert(kBM * kBM <= kStages * 2 * kOperand,
+              "the symmetric update stages a whole tile in the ring");
 
 // One operand as an (MN x K) matrix: element (r, q) at p[r * ms + q * ks];
 // vec: copyable 16 bytes at a time in its layout.
@@ -306,18 +335,74 @@ __device__ __forceinline__ void sub_rows(float* c, int64_t ldc,
     }
 }
 
+// Tile (ti, tj), ti >= tj, of the lower triangle of a grid of tiles that
+// block b of the symmetric update owns: b = ti (ti + 1) / 2 + tj, the
+// tiles row by row.
+__host__ __device__ inline void lower_tile(int64_t b, int& ti, int& tj) {
+  int64_t i = static_cast<int64_t>((sqrt(8.0 * b + 1.0) - 1.0) / 2.0);
+  while (i * (i + 1) / 2 > b) --i;
+  while ((i + 1) * (i + 2) / 2 <= b) ++i;
+  ti = static_cast<int>(i);
+  tj = static_cast<int>(b - i * (i + 1) / 2);
+}
+
+// The float offset of (row r, column q) of a 128 x 128 tile staged in
+// shared memory, its 16-byte chunks XOR-swizzled by (r / 4) mod 8: a
+// quarter-warp storing a float4 to each of 8 rows 4 apart, or loading 8
+// consecutive float4 of one row, hits 8 different bank groups.
+__device__ __forceinline__ int tile_at(int r, int q) {
+  return r * kBM + 4 * ((q >> 2) ^ ((r >> 2) & 7)) + (q & 3);
+}
+
+// Replaces a thread's acc (its fragment of the tile P) by its fragment of
+// P^T, through the shared tile s: acc[r][c] = P(frag_row(tx, c),
+// frag_row(ty, r)) after.  Every thread must be done with s before.
+__device__ __forceinline__ void transpose_acc(float* s, float (&acc)[8][8],
+                                              int tx, int ty) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(s + tile_at(frag_row(tx, c),
+                                             frag_row(ty, 4 * h))) =
+          float4{acc[4 * h][c], acc[4 * h + 1][c], acc[4 * h + 2][c],
+                 acc[4 * h + 3][c]};
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          s + tile_at(frag_row(ty, r), frag_row(tx, 4 * h)));
+      acc[r][4 * h] = v.x;
+      acc[r][4 * h + 1] = v.y;
+      acc[r][4 * h + 2] = v.z;
+      acc[r][4 * h + 3] = v.w;
+    }
+}
+
 // C[i, j] (= or, kSub, -=) the sum over q in [z kc, min(K, (z+1) kc)) of
 // A(i, q) B^T(j, q), for i < M, j < N, with z = blockIdx.z and C at
-// c + z * zs (row stride ldc).
-template <bool kAK, bool kBKm, bool kSub = false>
+// c + z * zs (row stride ldc).  kSym (with kSub, A = B K-major, one split):
+// the block owns lower tile blockIdx.x (lower_tile) and also subtracts its
+// transpose from the mirrored tile.
+template <bool kAK, bool kBKm, bool kSub = false, bool kSym = false>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 sgemm_kernel(Operand A, Operand B, float* __restrict__ c, int64_t ldc,
              int64_t zs, int K, int kc, int vec_c) {
+  static_assert(!kSym || (kSub && kAK && kBKm),
+                "the symmetric update subtracts A A^T, A K-major");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBM;
+  int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBM;
+  if constexpr (kSym) {
+    int ti, tj;
+    lower_tile(blockIdx.x, ti, tj);
+    i0 = ti * kBM;
+    j0 = tj * kBM;
+  }
   const int q_lo = blockIdx.z * kc;
   const int q_hi = min(K, q_lo + kc);
   const int nsl = (q_hi - q_lo + kBK - 1) / kBK;
@@ -360,6 +445,16 @@ sgemm_kernel(Operand A, Operand B, float* __restrict__ c, int64_t ldc,
     for (int half = 0; half < 2; ++half)
       sub_rows(c, ldc, acc, i0 + 64 * half + 4 * ty, j0, tx, M, N, vec_c,
                4 * half);
+    if constexpr (kSym) {
+      if (i0 != j0) {          // the mirror (j, i) -= P^T; uniform a block
+        __syncthreads();       // every thread done with the ring
+        transpose_acc(smem, acc, tx, ty);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          sub_rows(c, ldc, acc, j0 + 64 * half + 4 * ty, i0, tx, N, M,
+                   vec_c, 4 * half);
+      }
+    }
   } else {
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
@@ -452,15 +547,19 @@ inline Operand k_operand(const float* p, int64_t ld, int rows) {
                  ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0};
 }
 
-template <bool kAK, bool kBKm, bool kSub = false>
+// Launches sgemm_kernel: one block a tile of C and part of K (kSym: one
+// block a tile on or below the diagonal).
+template <bool kAK, bool kBKm, bool kSub = false, bool kSym = false>
 int launch(const Operand& A, const Operand& B, float* c, int64_t ldc,
            int64_t zs, int K, int kc, int nz, int vec_c, cudaStream_t s) {
-  auto kernel = sgemm_kernel<kAK, kBKm, kSub>;
+  auto kernel = sgemm_kernel<kAK, kBKm, kSub, kSym>;
   const int err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes)));
   if (err) return err;
-  const dim3 grid((B.rows + kBM - 1) / kBM, (A.rows + kBM - 1) / kBM, nz);
+  const unsigned t = (A.rows + kBM - 1) / kBM;
+  const dim3 grid = kSym ? dim3(t * (t + 1) / 2)
+                         : dim3((B.rows + kBM - 1) / kBM, t, nz);
   kernel<<<grid, kThreads, kSmemBytes, s>>>(A, B, c, ldc, zs, K, kc, vec_c);
   return static_cast<int>(cudaGetLastError());
 }

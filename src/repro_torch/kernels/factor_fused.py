@@ -47,10 +47,24 @@ def _lib() -> ctypes.CDLL:
             fn.argtypes = [_P, ctypes.c_int64, _P, ctypes.c_int64,
                            ctypes.c_int, _P, ctypes.c_int, _P]
             fn.restype = ctypes.c_int
+        lib.factor_lower_tile.argtypes = [
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int)]
+        lib.factor_lower_tile.restype = None
         lib.factor_error_string.argtypes = [ctypes.c_int]
         lib.factor_error_string.restype = ctypes.c_char_p
         lib._declared = True
     return lib
+
+
+def lower_tile(b: int) -> tuple[int, int]:
+    """The tile (i, j), i ≥ j, of the trailing block's 128 × 128 tiles
+    that block ``b`` of the built symmetric update owns (the tests hold
+    their emulation's map against it)."""
+    lib = _lib()
+    ti, tj = ctypes.c_int(), ctypes.c_int()
+    lib.factor_lower_tile(b, ctypes.byref(ti), ctypes.byref(tj))
+    return ti.value, tj.value
 
 
 def _check(a: torch.Tensor, linv: torch.Tensor, k: int, nb: int) -> None:
@@ -81,10 +95,11 @@ def _check(a: torch.Tensor, linv: torch.Tensor, k: int, nb: int) -> None:
 def _launch(fn_name: str, a, linv, k: int, nb: int, scratch_rows: int):
     lib = _lib()
     n = a.shape[0]
-    linv = linv.contiguous()
+    if not linv.mT.is_contiguous():    # the kernels read it column-major,
+        linv = linv.mT.contiguous().mT  # as solve_triangular returns it
     scratch = torch.empty(scratch_rows * nb, dtype=torch.float32,
                           device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    stream = _build.current_stream(a.device)
     err = getattr(lib, fn_name)(a.data_ptr(), n, linv.data_ptr(), k, nb,
                                 scratch.data_ptr(), a.device.index, stream)
     _build.raise_on(err, lib.factor_error_string, fn_name)
@@ -111,8 +126,10 @@ def cholesky_panel_update(a: torch.Tensor, linv: torch.Tensor, k: int, *,
                           nb: int) -> torch.Tensor:
     """One fused Cholesky step, in place: L21 = C·Lkk⁻ᵀ into the panel
     column block (rows ≥ k + nb), then A22 −= L21·L21ᵀ over the whole
-    trailing block.  ``a`` holds Lkk in its diagonal block at (k, k);
-    ``linv`` is Lkk⁻¹.  Returns ``a``."""
+    trailing block (the kernel computes the tiles on and below the
+    diagonal and mirrors them; each tile reads its own A22).  ``a`` holds
+    Lkk in its diagonal block at (k, k); ``linv`` is Lkk⁻¹.  Returns
+    ``a``."""
     _check(a, linv, k, nb)
     if not _build.on_cuda(a):
         return _ref.cholesky_panel_update(a, linv, k, nb=nb)

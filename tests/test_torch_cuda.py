@@ -93,9 +93,16 @@ def test_solve_goes_through_the_kernels(cuda_device, method, kernel):
 
 
 # (n, nb, k): tests/test_kernels.py's panel-update cases, then the direct
-# path's n = 16384, nb = 128 at its first, middle and next-to-last steps
+# path's n = 16384, nb = 128 at its first, middle and next-to-last steps;
+# then a trailing block of 3 tiles, the last ragged (m = 320), nb = 256 >
+# 128 (the next diagonal block spans a mirrored tile), and nb = 13 with
+# n % 4 = 2 (4-byte copies and accesses, m = 364)
 PANEL_CASES = [(128, 32, 0), (128, 32, 64), (128, 32, 96), (256, 64, 64),
-               (16384, 128, 0), (16384, 128, 8192), (16384, 128, 16128)]
+               (16384, 128, 0), (16384, 128, 8192), (16384, 128, 16128),
+               (384, 32, 32), (512, 256, 0), (390, 13, 13)]
+# the LU step, and the Cholesky step on the SPD ``a aᵀ/n + 4I``, on it made
+# exactly symmetric ((a + aᵀ)/2), and with a Gaussian upper triangle added
+PANEL_KINDS = ["lu", "cholesky", "cholesky-symmetric", "cholesky-unsymmetric"]
 # (n, m): the reference's trsm test shapes, m = 1 and a 1-D b, n = 16384
 TRSM_CASES = [(128, 128), (256, 128), (256, 64), (100, 1), (130, 7),
               (100, 0), (16384, 0), (16384, 128),
@@ -104,13 +111,18 @@ TRSM_CASES = [(128, 128), (256, 128), (256, 64), (100, 1), (130, 7),
               (20480, 0), (20480, 3), (16383, 0), (16383, 33), (1000, 33)]
 
 
-def _panel_inputs(n, nb, k, spd, dev):
-    """A Gaussian (or SPD) working matrix with a well-conditioned diagonal
-    block at (k, k) and its inverse, as the factorizations hand them over."""
+def _panel_inputs(n, nb, k, kind, dev):
+    """A Gaussian (or, for a Cholesky ``kind`` of ``PANEL_KINDS``, SPD)
+    working matrix with a well-conditioned diagonal block at (k, k) and its
+    inverse, as the factorizations hand them over."""
     g = torch.Generator(device=dev).manual_seed(n + nb + k)
     a = torch.randn(n, n, generator=g, device=dev)
-    if spd:
+    if kind != "lu":
         a = a @ a.T / n + 4 * torch.eye(n, device=dev)
+        if kind == "cholesky-symmetric":
+            a = (a + a.T) / 2
+        elif kind == "cholesky-unsymmetric":
+            a += torch.triu(torch.randn(n, n, generator=g, device=dev), 1)
         l11 = torch.linalg.cholesky(a[k:k + nb, k:k + nb])
         a[k:k + nb, k:k + nb] = l11
         linv = torch.linalg.solve_triangular(
@@ -125,13 +137,17 @@ def _panel_inputs(n, nb, k, spd, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("spd", [False, True], ids=["lu", "cholesky"])
+@pytest.mark.parametrize("kind", PANEL_KINDS)
 @pytest.mark.parametrize("n,nb,k", PANEL_CASES)
 def test_panel_update_kernels_match_plain_versions(cuda_device, n, nb, k,
-                                                   spd):
+                                                   kind):
+    """Held against the plain version; the Cholesky kernel computes the
+    tiles on and below the diagonal and mirrors them, so on an exactly
+    symmetric A its trailing block is bitwise symmetric, and on an A whose
+    upper triangle differs it still reads each tile's own A."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    a, linv = _panel_inputs(n, nb, k, spd, cuda_device)
-    name = "cholesky_panel_update" if spd else "lu_panel_update"
+    a, linv = _panel_inputs(n, nb, k, kind, cuda_device)
+    name = "lu_panel_update" if kind == "lu" else "cholesky_panel_update"
     kernel, plain = getattr(factor_fused, name), getattr(ref, name)
     before = factor_fused.LAUNCHES[name]
     got = kernel(a.clone(), linv, k, nb=nb)
@@ -146,6 +162,60 @@ def test_panel_update_kernels_match_plain_versions(cuda_device, n, nb, k,
     torch.testing.assert_close(got, want, rtol=2.5e-7, atol=1e-5 * change)
     # the last step (k + nb = n) has nothing right of the panel: no launch
     assert factor_fused.LAUNCHES[name] == before + (2 if k + nb < n else 0)
+    if kind == "cholesky-symmetric":
+        tail = got[k + nb:, k + nb:]
+        assert torch.equal(tail, tail.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lu", "cholesky"])
+def test_panel_update_kernels_a_call(cuda_device, kind):
+    """A step is two CUDA kernels, the panel solve and the update (for
+    Cholesky the symmetric variant), and one device copy, each at most
+    once a call over 10 profiled calls (``torch.profiler`` drops a record
+    now and then, never adds one; an empty trace is taken again).  The
+    inverse is the factorizations' own, column-major from
+    ``solve_triangular``: the kernels read it in place, so no call copies
+    it."""
+    from torch.profiler import ProfilerActivity, profile
+    a, linv = _panel_inputs(4096, 128, 0, kind, cuda_device)
+    assert linv.mT.is_contiguous()
+    kernel = getattr(factor_fused, f"{kind}_panel_update")
+    kernel(a, linv, 0, nb=128)          # built and launched once
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                kernel(a, linv, 0, nb=128)
+            torch.cuda.synchronize()
+        names = [e.name.replace(" ", "") for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")]
+        if names:
+            break
+    counts = {name: names.count(name) for name in set(names)}
+    kernels = [name for name in counts if "sgemm_kernel<" in name]
+    copies = [name for name in counts if "Memcpy" in name]
+    assert len(kernels) == 2 and len(copies) == 1, counts
+    assert set(counts) == set(kernels + copies), counts
+    assert all(1 <= c <= 10 for c in counts.values()), counts
+    symmetric = [name for name in kernels
+                 if "sgemm_kernel<true,true,true,true>" in name]
+    assert len(symmetric) == (kind == "cholesky"), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lu", "cholesky"])
+def test_panel_update_kernels_take_a_row_major_inverse(cuda_device, kind):
+    """A row-major inverse gives the same result, bitwise, as the
+    column-major one the factorizations pass."""
+    a, linv = _panel_inputs(640, 128, 128, kind, cuda_device)
+    kernel = getattr(factor_fused, f"{kind}_panel_update")
+    want = kernel(a.clone(), linv, 128, nb=128)
+    got = kernel(a.clone(), linv.contiguous(), 128, nb=128)
+    assert not linv.is_contiguous()
+    assert torch.equal(got, want)
 
 
 def _triangle(n, upper, dev):

@@ -8,6 +8,7 @@
 * The CLI runs on the CPU with ``--device cpu``.
 """
 import ast
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -186,3 +187,29 @@ def test_kernel_compare_refuses_a_tree_without_chip_smoke(tmp_path):
                            str(tmp_path)], capture_output=True, text=True)
     assert proc.returncode == 2
     assert "no chip_smoke.py" in proc.stderr
+
+
+def _root_module(name):
+    sys.path.insert(0, str(ROOT))
+    try:
+        return importlib.import_module(name)
+    finally:
+        sys.path.remove(str(ROOT))
+
+
+def test_kernel_compare_matches_kernels_by_their_sass():
+    """``kernel_compare.py --sass`` reads ``cuobjdump -sass`` output as
+    each kernel's instructions, without addresses or encodings, so two
+    builds of the same code compare equal whatever their names."""
+    kernel_compare = _root_module("kernel_compare")
+    text = """
+\t\tFunction : _Z1fv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+                                                            /* 0x000fe20000000800 */
+        /*0010*/                   EXIT ;                   /* 0x000000000000794d */
+\t\tFunction : _Z1gv
+        /*10000*/                  FFMA R2, R3, R4, R2 ;    /* 0x0000000403027223 */
+"""
+    assert kernel_compare.parse_sass(text) == {
+        "_Z1fv": ("LDC R1, c[0x0][0x28]", "EXIT"),
+        "_Z1gv": ("FFMA R2, R3, R4, R2",)}

@@ -13,7 +13,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    the card, at n ∈ {16384, 16384 + 130, 2²⁴} (vectors rtol = atol =
    1e-5, dots rtol 1e-4), bitwise-repeatable, timed with CUDA events
    beside the plain version and the memory bound (bytes ÷ 3.35 TB/s, H100
-   SXM);
+   SXM), with each call's CUDA kernels and their device µs
+   (``torch.profiler``; ``main`` fails unless ``fused_cg_update`` is one
+   kernel, at most once a call), the host µs a call of the wrapper (the
+   least of 5 rounds of 400 calls), and the bits of the results (``rr``
+   as an int32, the first 16 hex digits of the SHA-256 of the x' and r'
+   bytes), by which two trees' turns show whether they agree bitwise;
 3b. direct kernels, at the direct path's n = 16384 float32, nb = 128: the
    LU and Cholesky panel updates at k ∈ {0, n/2, n − 2nb} (on the change
    they make: atol 1e-5 · its largest entry, rtol 2.5e-7), the Cholesky
@@ -139,7 +144,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``csrc/attention_wgmma.cu``, float32 on the float32 pipes,
    ``csrc/attention.cu``), with the tensor-core kernel's ptxas registers,
    shared memory and spills and the count of ``HGMMA`` instructions in its
-   SASS (``cuobjdump``; a count of 0 fails), then at the serving path's
+   SASS (``cuobjdump``; a count of 0 fails), the float32 kernel's ptxas
+   report and its SASS's ``FFMA`` and ``LDL`` / ``STL`` counts (an
+   ``HMMA`` or ``HGMMA`` there fails), then at the serving path's
    shapes (qwen3-1.7b:
    B = 4, 16 / 8 heads, D = 128, causal, T = 1920 and 2048, bf16 and the
    float32 copy's float32, and T = 32768 at B = 1) and the other configs'
@@ -188,6 +195,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -205,6 +213,7 @@ N_MAIN = 16384
 KERNEL_SIZES = (N_MAIN, N_MAIN + 130, 1 << 24)
 TIMED_LAUNCHES = 200
 HOST_TIMED_CALLS = 400               # under the launch queue's depth
+HOST_ROUNDS = 5
 RESIDUAL_LIMIT = 1e-4
 STEADY_ITERS = 100
 STEADY_PAIRS = 6
@@ -396,20 +405,24 @@ def time_ms(torch, fn, launches: int = TIMED_LAUNCHES) -> float:
     return start.elapsed_time(end) / launches
 
 
-def host_us(torch, fn, calls: int = HOST_TIMED_CALLS) -> float:
+def host_us(torch, fn, calls: int = HOST_TIMED_CALLS,
+            rounds: int = HOST_ROUNDS) -> float:
     """Host-clock µs a call of ``fn`` over ``calls`` calls that only
     enqueue work (few enough that the launch queue never fills), after a
-    warm-up: the wrapper's host cost, which sets a back-to-back time
-    wherever it exceeds the device's."""
+    warm-up, the least of ``rounds`` rounds (the host's cores are shared,
+    so other work only adds to a round): the wrapper's host cost, which
+    sets a back-to-back time wherever it exceeds the device's."""
     for _ in range(10):
         fn()
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - start)
     torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    elapsed = time.perf_counter() - start
-    torch.cuda.synchronize()
-    return 1e6 * elapsed / calls
+    return 1e6 * best / calls
 
 
 def phase_card(torch) -> str:
@@ -438,12 +451,21 @@ def phase_build() -> None:
         paths = list(pool.map(_build.build, names))
     for name, path in zip(names, paths):
         _build.library(name)
-        print(f"[build] {name}: {path.relative_to(ROOT)}")
+        where = path.relative_to(ROOT) if path.is_relative_to(ROOT) else path
+        print(f"[build] {name}: {where}")
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "smem" in line or "spill" in line \
                     or "entry function" in line:
                 print(f"[build]   {line.strip()}")
     print(f"[build] seconds {time.perf_counter() - t0:.3f}")
+
+
+def _bits(torch, t) -> str:
+    """A tensor's bits: a 0-d float32 as its int32, else the first 16 hex
+    digits of the SHA-256 of its bytes."""
+    if t.ndim == 0:
+        return f"0x{int(t.view(torch.int32)) & 0xffffffff:08x}"
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def phase_kernels(torch) -> dict:
@@ -482,14 +504,28 @@ def phase_kernels(torch) -> dict:
                           f"(max abs err {err})")
             ms = time_ms(torch, lambda: kernel(*args))
             plain_ms = time_ms(torch, lambda: plain(*args))
+            wrapper_us = host_us(torch, lambda: kernel(*args))
+            # after the timings: a trace can leave launches slower.
+            # torch.profiler drops a kernel's record now and then, never
+            # adds one
+            events = _cuda_kernel_events(torch, lambda: kernel(*args),
+                                         PROFILED_CALLS)
+            per_call = len(events) / PROFILED_CALLS
+            kinds = len({kname for kname, _ in events})
             nbytes = KERNEL_RECORD[name]["streams"] * 4 * n
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
             rows[(name, n)] = {"max_abs_err": err, "ms": ms,
-                               "plain_ms": plain_ms, "bound_ms": bound_ms}
+                               "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "kernels_a_call": per_call,
+                               "kernel_kinds": kinds}
             print(f"[kernel] {name} n={n} max_abs_err={err:.3e} "
                   f"bitwise_rerun=True ms={ms:.6f} plain_ms={plain_ms:.6f} "
                   f"bound_ms={bound_ms:.6f} bytes={nbytes} "
-                  f"library_ms=null (no single PyTorch call computes it)")
+                  f"library_ms=null (no single PyTorch call computes it) "
+                  f"cuda_kernels_a_call={per_call:g} "
+                  f"kernel_device_us={_kernel_us(events)} "
+                  f"host_us_a_call={wrapper_us:.3f} "
+                  f"bits={','.join(_bits(torch, t) for t in got)}")
     return rows
 
 
@@ -1349,12 +1385,12 @@ def _qr_update_cost(m: int, n: int, nb: int, k: int) -> tuple[float, float]:
 
 
 def _gemm_sass(libs, tag: str) -> None:
-    """Kernels 4, 5, 7 and 9 stay on the float32 pipes: the count of
-    tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS
+    """Kernels 4, 5, 7, 9 and 10 in float32 stay on the float32 pipes: the
+    count of tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS
     (``cuobjdump``) of each library of ``libs`` (``factor_fused``,
-    ``gemm``, ``qr_fused``) must be 0; each kernel's ``FFMA`` and
-    local-memory (``LDL`` / ``STL``, spill) counts are printed beside,
-    on lines tagged ``[tag]``."""
+    ``gemm``, ``qr_fused``, ``attention``) must be 0; each kernel's
+    ``FFMA`` and local-memory (``LDL`` / ``STL``, spill) counts are printed
+    beside, on lines tagged ``[tag]``."""
     from repro_torch.kernels import _build
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     check(cuobjdump.exists(), f"no cuobjdump at {cuobjdump}: the float32 "
@@ -1866,13 +1902,18 @@ def _sdpa_call(torch, q, k, v, causal, window):
             "end-aligned boolean attn_mask")
 
 
-def _tensor_core_sass() -> None:
+def _attention_sass() -> None:
     """The tensor-core kernel's ptxas report and the count of ``HGMMA``
-    (wgmma) instructions in its SASS; a count of 0 fails."""
+    (wgmma) instructions in its SASS (a count of 0 fails); the float32
+    kernel's ptxas report, and its SASS's ``FFMA`` and ``LDL`` / ``STL``
+    counts (an ``HMMA`` or ``HGMMA`` there fails: it stays on the float32
+    pipes)."""
     from repro_torch.kernels import _build
-    for line in _build.BUILD_LOGS.get("attention_wgmma", "").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"[attention-kernel] ptxas: {line.strip()}")
+    for lib in ("attention_wgmma", "attention"):
+        for line in _build.BUILD_LOGS.get(lib, "").splitlines():
+            if "registers" in line or "smem" in line or "spill" in line \
+                    or "entry function" in line:
+                print(f"[attention-kernel] {lib} ptxas: {line.strip()}")
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     if not cuobjdump.exists():
         print("[attention-kernel] HGMMA count: not measured (no cuobjdump "
@@ -1887,6 +1928,7 @@ def _tensor_core_sass() -> None:
           f"attention_wgmma.cu: {count}")
     check(count > 0, "the tensor-core attention kernel's SASS holds no "
                      "HGMMA instruction")
+    _gemm_sass(("attention",), "attention-kernel")
 
 
 def phase_attention_kernel(torch) -> tuple[dict, set]:
@@ -1897,7 +1939,7 @@ def phase_attention_kernel(torch) -> tuple[dict, set]:
     from repro_torch.kernels import attention, ref
     dev = torch.device("cuda")
     record, held = {}, set()
-    _tensor_core_sass()
+    _attention_sass()
     for i, (label, b, hq, hkv, tq, tk, d, causal, window, dt) in \
             enumerate(ATTENTION_CASES):
         dtype = getattr(torch, dt)
@@ -2253,6 +2295,11 @@ def main() -> int:
     phase_card(torch)
     phase_build()
     rows = phase_kernels(torch)
+    for n in KERNEL_SIZES:     # kernel 1 is one launch a call
+        row = rows[("fused_cg_update", n)]
+        check(row["kernel_kinds"] == 1 and row["kernels_a_call"] <= 1,
+              f"fused_cg_update n={n}: {row['kernels_a_call']} CUDA kernels "
+              f"a call of {row['kernel_kinds']} kinds, not one")
     direct_rows = phase_direct_kernels(torch)
     sparse_row = phase_sparse_kernels(torch)
     ls_rows = phase_ls_kernels(torch)

@@ -126,7 +126,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty(b, hq, tq, d, dtype=q.dtype, device=q.device)
     name, counter = _KERNELS[q.dtype]
     lib = _lib(name)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.current_stream(q.device)
     err = getattr(lib, f"{name}_forward")(
         _DTYPES[q.dtype], q.data_ptr(), _STRIDES(*q.stride()), k.data_ptr(),
         _STRIDES(*k.stride()), v.data_ptr(), _STRIDES(*v.stride()),

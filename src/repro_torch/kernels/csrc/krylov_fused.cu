@@ -19,13 +19,23 @@
 // vectors: each element is read once and each output written once, and the
 // reductions ride along in registers.
 //
-// Determinism: no sum uses atomics.  fused_cg_update and
-// fused_pipelined_dots write one partial sum per block (a shared-memory
-// tree with a fixed shape) into a partials buffer, and a second launch sums
-// the partials in a fixed order.  fused_gram (k <= 16) does both in one
-// launch: the block that takes the last ticket sums every block's partials
-// in block order.  The grids depend only on the shape, so reruns give
-// bitwise-identical results.
+// Determinism: no sum uses atomics.  Each block writes its partial sums (a
+// shared-memory tree with a fixed shape) into a partials buffer.
+// fused_pipelined_dots then sums the partials in a second launch, in a
+// fixed order.  fused_cg_update and fused_gram (k <= 16) do both in one
+// launch: each block takes a ticket after its partials (release / acquire),
+// and the block that takes the last one sums every block's partials in a
+// fixed order and sets the ticket back to 0.  The ticket picks that block,
+// never the order of a sum.  The ticket and the partials live in a
+// workspace the wrapper keeps for each stream.  The grids depend only on
+// the shape, so reruns give bitwise-identical results.
+//
+// fused_cg_update at the dense main path's n = 16384 is 64 blocks of one
+// element a thread, a few microseconds of device work: the host's work a
+// call sets its time, so it is one launch (the last block sums the
+// partials exactly as the second launch sum_partials_kernel<1> did: thread
+// t adds partials t, t + 256, ... in index order, then the same tree), and
+// its wrapper allocates only what it returns.
 //
 // The TPU kernels' zero pad to a multiple of 8x128 was a tiling need; here a
 // grid-stride loop with an `i < n` bound covers any n (and any k for the
@@ -85,12 +95,31 @@ __device__ __forceinline__ void block_tree_sum(float (&sh)[K][kThreads],
   }
 }
 
+// Takes a ticket (acq_rel, GPU scope) after the block's writes are fenced;
+// true in every thread of the block that took the last one.
+__device__ __forceinline__ bool last_block(unsigned* ticket) {
+  __shared__ int last;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    unsigned prev;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;\n"
+                 : "=r"(prev) : "l"(ticket), "r"(1u) : "memory");
+    last = prev == gridDim.x - 1;
+  }
+  __syncthreads();
+  return last;
+}
+
+// One launch: xo, ro and the block's partial of <ro, ro> into
+// partials[blockIdx.x]; the block with the last ticket sums the partials
+// into rr as sum_partials_kernel<1> does (thread t: partials t, t + 256,
+// ... in index order; then block_tree_sum) and sets the ticket back to 0.
 __global__ void __launch_bounds__(kThreads)
 cg_update_kernel(const float* __restrict__ x, const float* __restrict__ r,
                  const float* __restrict__ p, const float* __restrict__ ap,
                  const float* __restrict__ alpha, float* __restrict__ xo,
                  float* __restrict__ ro, float* __restrict__ partials,
-                 int64_t n) {
+                 unsigned* ticket, float* __restrict__ rr, int64_t n) {
   __shared__ float sh[1][kThreads];
   const float a = *alpha;
   float acc[1] = {0.f};
@@ -106,6 +135,15 @@ cg_update_kernel(const float* __restrict__ x, const float* __restrict__ r,
   }
   block_tree_sum<1>(sh, acc);
   if (threadIdx.x == 0) partials[blockIdx.x] = sh[0][0];
+  if (!last_block(ticket)) return;
+
+  __threadfence();
+  if (threadIdx.x == 0) *ticket = 0;
+  float sum[1] = {0.f};
+  for (int j = threadIdx.x; j < static_cast<int>(gridDim.x); j += kThreads)
+    sum[0] += __ldcg(partials + j);
+  block_tree_sum<1>(sh, sum);
+  if (threadIdx.x == 0) *rr = sh[0][0];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -395,6 +433,8 @@ constexpr int64_t gram_work_floats() {
   }
   return 4 + most;
 }
+static_assert(gram_work_floats() >= 4 + kMaxBlocks,
+              "fused_cg_update's partials share the Gram workspace");
 
 // Columns 4q .. 4q + 3 of row i (zeros past n, or for q past the last quad).
 __device__ __forceinline__ float4 load_quad(const float* __restrict__ v,
@@ -567,20 +607,21 @@ const char* krylov_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// xo = x + alpha p, ro = r - alpha ap, rr = <ro, ro>.  partials holds
-// `blocks` floats.  Returns the CUDA error of the launches (0 on success).
+// xo = x + alpha p, ro = r - alpha ap, rr = <ro, ro> in one launch.  work
+// is the stream's workspace (krylov_gram_work_floats floats, 16-byte
+// aligned, ticket 0 between calls): its first int the ticket, `blocks`
+// partials from float 4 on.  Returns the CUDA error of the launch (0 on
+// success).
 int krylov_fused_cg_update(const float* x, const float* r, const float* p,
                            const float* ap, const float* alpha, float* xo,
-                           float* ro, float* partials, float* rr, int64_t n,
+                           float* ro, float* work, float* rr, int64_t n,
                            int blocks, int device, void* stream) {
   int err = check_args(device, n, blocks);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cg_update_kernel<<<blocks, kThreads, 0, s>>>(x, r, p, ap, alpha, xo, ro,
-                                               partials, n);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  sum_partials_kernel<1><<<1, kThreads, 0, s>>>(partials, blocks, rr);
+  cg_update_kernel<<<blocks, kThreads, 0, s>>>(
+      x, r, p, ap, alpha, xo, ro, work + 4, reinterpret_cast<unsigned*>(work),
+      rr, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -61,19 +61,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# One Gram workspace a stream: the ticket by which the last block of a
-# launch finds itself (it sets the ticket back to 0) and the blocks'
-# partial triangles.  Calls on one stream run in order, so they share it;
-# calls on two streams have one each and may run at the same time.  Keys
-# are (device index, raw stream handle); torch hands out streams from a
-# fixed pool a device, so the table stays small.
-_GRAM_WORK: dict[tuple[int, int], torch.Tensor] = {}
+# One workspace a stream for the one-launch reductions (kernel 1, and
+# kernel 3 for k <= 16): the ticket by which the last block of a launch
+# finds itself (it sets the ticket back to 0) and the blocks' partials.
+# Calls on one stream run in order, so they share it; calls on two streams
+# have one each and may run at the same time.  Keys are (device index, raw
+# stream handle); torch hands out streams from a fixed pool a device, so the
+# table stays small.
+_WORK: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _gram_work(lib, device: torch.device, stream: int) -> torch.Tensor:
-    work = _GRAM_WORK.get((device.index, stream))
+def _work(lib, device: torch.device, stream: int) -> torch.Tensor:
+    work = _WORK.get((device.index, stream))
     if work is None:
-        work = _GRAM_WORK[device.index, stream] = torch.zeros(
+        work = _WORK[device.index, stream] = torch.zeros(
             lib.krylov_gram_work_floats(), dtype=torch.float32,
             device=device)
     return work
@@ -85,8 +86,19 @@ def _blocks(lib, n: int) -> int:
     return min(-(-n // lib.threads), lib.max_blocks)
 
 
+_F32 = torch.float32
+
+
 def _check_vectors(names: str, *vs) -> None:
-    """Same device, float32, 1-D, equal nonzero lengths, contiguous."""
+    """Same device, float32, 1-D, equal nonzero lengths, contiguous.  A set
+    that passes is recognised in a few attribute reads (a small kernel's
+    call is host-bound); only a set that fails is walked for its error."""
+    v0 = vs[0]
+    if isinstance(v0, torch.Tensor) and v0.dim() == 1 and v0.shape[0] > 0 \
+            and all(isinstance(v, torch.Tensor) and v.dtype is _F32
+                    and v.shape == v0.shape and v.device == v0.device
+                    and v.is_contiguous() for v in vs):
+        return
     names = names.split()
     for name, v in zip(names, vs):
         if not isinstance(v, torch.Tensor):
@@ -108,25 +120,27 @@ def fused_cg_update(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
                     ap: torch.Tensor, alpha):
     """``(x + αp, r − αAp, ⟨r', r'⟩)`` in one pass.  On CUDA, ``alpha`` is a
     0-d float32 tensor on the same device (the kernel reads it from device
-    memory); ``rr`` comes back as a 0-d tensor."""
+    memory); ``rr`` comes back as a 0-d tensor.  One launch a call, on the
+    current stream's workspace; the wrapper allocates only what it
+    returns."""
     _check_vectors("x r p ap", x, r, p, ap)
     if not _build.on_cuda(x):
         return _ref.fused_cg_update(x, r, p, ap, alpha)
+    dev = x.device
     if not (isinstance(alpha, torch.Tensor) and alpha.ndim == 0
-            and alpha.dtype == torch.float32 and alpha.device == x.device):
+            and alpha.dtype is _F32 and alpha.device == dev):
         raise TypeError("alpha must be a 0-d float32 tensor on "
                         f"{x.device}, got {alpha!r}")
     lib = _lib()
     n = x.shape[0]
-    blocks = _blocks(lib, n)
     xo, ro = torch.empty_like(x), torch.empty_like(r)
-    partials = torch.empty(blocks, dtype=torch.float32, device=x.device)
-    rr = torch.empty((), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rr = torch.empty_like(alpha)
+    stream = _build.current_stream(dev)
     err = lib.krylov_fused_cg_update(
         x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
-        alpha.data_ptr(), xo.data_ptr(), ro.data_ptr(), partials.data_ptr(),
-        rr.data_ptr(), n, blocks, x.device.index, stream)
+        alpha.data_ptr(), xo.data_ptr(), ro.data_ptr(),
+        _work(lib, dev, stream).data_ptr(), rr.data_ptr(), n,
+        _blocks(lib, n), dev.index, stream)
     _build.raise_on(err, lib.krylov_error_string, "fused_cg_update")
     LAUNCHES["fused_cg_update"] += 1
     return xo, ro, rr
@@ -177,7 +191,7 @@ def fused_gram(v: torch.Tensor) -> torch.Tensor:
         device=dev)
     stream = _build.current_stream(dev)
     err = lib.krylov_fused_gram(
-        v.data_ptr(), _gram_work(lib, dev, stream).data_ptr(),
+        v.data_ptr(), _work(lib, dev, stream).data_ptr(),
         None if partials is None else partials.data_ptr(), g.data_ptr(), k,
         n, dev.index, stream)
     _build.raise_on(err, lib.krylov_error_string, "fused_gram")

@@ -73,6 +73,61 @@ def test_wrapper_needs_alpha_on_the_device(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cg_update_is_one_kernel_a_call(cuda_device):
+    """One CUDA kernel a call, at most once a call over 10 profiled calls
+    (``torch.profiler`` drops a record now and then, never adds one; an
+    empty trace is taken again), at the dense main path's n = 16384."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x, r, p, ap = (torch.randn(16384, generator=g, device=cuda_device)
+                   for _ in range(4))
+    alpha = torch.tensor(0.41, device=cuda_device)
+    krylov_fused.fused_cg_update(x, r, p, ap, alpha)   # built and launched
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                krylov_fused.fused_cg_update(x, r, p, ap, alpha)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(e.device_type).endswith("CUDA")]
+        if names:
+            break
+    counts = {name: names.count(name) for name in set(names)}
+    assert len(counts) == 1 and "cg_update_kernel" in names[0], counts
+    assert 1 <= len(names) <= 10, counts
+
+
+@pytest.mark.cuda
+def test_cg_update_on_two_streams_at_once(cuda_device):
+    """Calls on two streams that do not wait on each other, at sizes of
+    64, 1 and 1024 blocks: each stream has a ticket and partials of its
+    own, so every result is bitwise what the default stream gives."""
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    alpha = torch.tensor(0.37, device=cuda_device)
+    args = [[torch.randn(n, generator=g, device=cuda_device)
+             for _ in range(4)] + [alpha] for n in (16384, 130, 1 << 22)]
+    wants = [krylov_fused.fused_cg_update(*a) for a in args]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    gots = [[], []]
+    for _ in range(8):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                gots[i] += [krylov_fused.fused_cg_update(*a)
+                            for a in (args if i == 0 else args[::-1])]
+    torch.cuda.synchronize()
+    for i in range(2):
+        order = wants if i == 0 else wants[::-1]
+        for j, got in enumerate(gots[i]):
+            for a, b in zip(got, order[j % len(args)]):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("method,kernel", [
     ("cg", "fused_cg_update"), ("bicg", "fused_cg_update"),
     ("bicgstab", "fused_cg_update"),
@@ -1006,6 +1061,132 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(
     with torch.inference_mode():                # the serving path's mode
         attention.flash_attention(leaf * 1.0, k, v)
     assert attention.LAUNCHES["flash_attention"] == before + 1
+
+
+def _float32_attention_close(q, k, v, **kw):
+    """Kernel 10 on float32 inputs goes to the float32 kernel, reruns
+    bitwise and holds rtol = atol = 1e-4 against the plain version."""
+    before = dict(attention.LAUNCHES)
+    got = attention.flash_attention(q, k, v, **kw)
+    again = attention.flash_attention(q, k, v, **kw)
+    assert attention.LAUNCHES["flash_attention_f32"] \
+        == before["flash_attention_f32"] + 2
+    assert torch.equal(got, again)
+    _attention_close(got, ref.attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("case", [
+    (2, 4, 2, 256, 256, True, None), (2, 4, 2, 256, 256, False, None),
+    (1, 8, 1, 256, 256, True, 128), (1, 4, 2, 128, 512, True, None),
+    (1, 4, 4, 100, 100, True, None)],
+    ids=["causal", "full", "window", "offset", "short"])
+def test_float32_attention_kernel_above_d128(cuda_device, case, d):
+    """128 < D <= 256 runs the float32 file's wide kernel (64 rows a
+    CTA)."""
+    b, hq, hkv, tq, tk, causal, window = case
+    _float32_attention_close(*_attention_inputs(
+        cuda_device, b, hq, hkv, tq, tk, d, torch.float32),
+        causal=causal, window=window)
+
+
+@pytest.mark.cuda
+def test_float32_attention_on_qwen3_long_rows(cuda_device):
+    """qwen3-1.7b's heads (16 / 8, D = 128) over 2048 keys, causal: 16 row
+    tiles, the last one over 16 key tiles."""
+    _float32_attention_close(*_attention_inputs(
+        cuda_device, 1, 16, 8, 2048, 2048, 128, torch.float32, seed=8))
+
+
+def _reaches_128_row_ctas(dev, b, hq, tq):
+    """The float32 kernel runs 128 query rows a CTA where the grid's row
+    tiles, batch·heads·⌈Tq/128⌉, fill the card's SMs (64 rows below)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return b * hq * -(-tq // 128) >= sms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (2, 32, 8, 512, 512, True, 200, 128),
+    (2, 32, 8, 512, 512, False, None, 128),
+    (5, 32, 8, 128, 2048, True, None, 128),
+    (5, 32, 8, 128, 2048, True, 300, 128),
+    (5, 32, 8, 128, 2048, False, None, 128),
+    (5, 32, 8, 100, 100, True, None, 128),
+    (5, 32, 8, 32, 96, True, 40, 128),
+    (2, 32, 8, 512, 512, True, 200, 112),
+    (2, 32, 8, 512, 512, True, 200, 30)],
+    ids=["window", "full", "offset", "offset-window", "offset-full", "short",
+         "short-window", "window-d112", "window-d30"])
+def test_float32_attention_kernel_at_128_rows_a_cta(cuda_device, case):
+    """The masks of ``test_attention_kernel_matches_plain_version`` on grids
+    large enough for the 128-row variant the serving path runs: the window
+    skip, the decode offset (Tq < Tk), the non-causal path, a short Tq and
+    D = 112 / 30."""
+    b, hq, hkv, tq, tk, causal, window, d = case
+    assert _reaches_128_row_ctas(cuda_device, b, hq, tq)
+    _float32_attention_close(*_attention_inputs(
+        cuda_device, b, hq, hkv, tq, tk, d, torch.float32, seed=tq + d),
+        causal=causal, window=window)
+
+
+@pytest.mark.cuda
+def test_float32_attention_at_128_rows_a_cta_rows_without_a_visible_key(
+        cuda_device):
+    """``test_attention_kernel_rows_without_a_visible_key`` on grids large
+    enough for the 128-row variant: causal with Tq > Tk, rows whose tiles
+    are all skipped return 0 (Tq = 512, Tk = 128: three dead row tiles),
+    rows masked inside a live tile the mean of its values (Tq = 128,
+    Tk = 64); the other rows match the plain version."""
+    for b, tq, tk in ((2, 512, 128), (5, 128, 64)):
+        assert _reaches_128_row_ctas(cuda_device, b, 32, tq)
+        q, k, v = _attention_inputs(cuda_device, b, 32, 8, tq, tk, 128,
+                                    torch.float32, seed=tq + tk)
+        before = attention.LAUNCHES["flash_attention_f32"]
+        got = attention.flash_attention(q, k, v)
+        assert attention.LAUNCHES["flash_attention_f32"] == before + 1
+        dead = tq - tk
+        _attention_close(got[:, :, dead:],
+                         ref.attention(q, k, v)[:, :, dead:])
+        if tq == 512:
+            assert (got[:, :, :dead] == 0).all()
+        else:
+            want = v.mean(dim=2, keepdim=True).repeat_interleave(
+                4, dim=1).expand(b, 32, dead, 128)
+            torch.testing.assert_close(got[:, :, :dead], want, rtol=1e-5,
+                                       atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_float32_attention_at_128_rows_a_cta_reads_strided_views(
+        cuda_device):
+    """Head-transposed views of the projections, as the attention layer
+    hands them over, on a grid of the 128-row variant."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(2, 512, 48, 128, generator=g, device=cuda_device)
+    heads = x.transpose(1, 2)                   # (2, 48, 512, 128), strided
+    q, k, v = heads[:, :32], heads[:, 32:40], heads[:, 40:]
+    assert not q.is_contiguous()
+    assert _reaches_128_row_ctas(cuda_device, 2, 32, 512)
+    _float32_attention_close(q, k, v)
+    _float32_attention_close(q, k, v, window=200)
+    _float32_attention_close(q, k, v, causal=False)
+
+
+@pytest.mark.cuda
+def test_float32_attention_without_16_byte_rows(cuda_device):
+    """Rows the float32 kernel cannot copy 16 bytes at a time (D = 30, and
+    a view whose feature stride is not 1) take its 4-byte copies."""
+    _float32_attention_close(*_attention_inputs(
+        cuda_device, 1, 4, 2, 256, 256, 30, torch.float32, seed=9))
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    x = torch.randn(1, 8, 64, 256, generator=g, device=cuda_device)
+    heads = x.transpose(2, 3)                   # (1, 8, 256, 64), D stride 256
+    q, k, v = heads[:, :4], heads[:, 4:6], heads[:, 6:]
+    assert q.stride(3) != 1
+    _float32_attention_close(q, k, v, window=100)
+    _float32_attention_close(q, k, v, causal=False)
 
 
 def _tensor_core_attention_close(q, k, v, **kw):

@@ -180,6 +180,27 @@ def test_attention_probe_variants_cut_the_kernel_source():
     assert len(set(texts.values())) == len(texts) == 7
 
 
+def test_attention_probe_float32_variants_cut_the_kernel_source():
+    """The same for ``attention_probe.py --float32``'s variants of the
+    float32 kernel (``csrc/attention.cu``)."""
+    attention_probe = _root_module("attention_probe")
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+           / "attention.cu").read_text()
+    texts = attention_probe.variants_f32(src)
+    assert texts["full"] == src
+    assert len(set(texts.values())) == len(texts) == 8
+
+
+def test_kernel_compare_phases_are_chip_smoke_phases():
+    """Every phase ``kernel_compare.py --phases`` names is a function of
+    ``chip_smoke.py`` (whose phases every turn runs)."""
+    kernel_compare = _root_module("kernel_compare")
+    chip_smoke = _root_module("chip_smoke")
+    assert {"3", "3b", "3d", "3e", "3f"} <= set(kernel_compare.PHASES)
+    for name in kernel_compare.PHASES.values():
+        assert callable(getattr(chip_smoke, name))
+
+
 def test_kernel_compare_refuses_a_tree_without_chip_smoke(tmp_path):
     """``kernel_compare.py`` runs another checkout's phases: a directory
     without ``chip_smoke.py`` is refused before anything is built."""
@@ -195,6 +216,44 @@ def _root_module(name):
         return importlib.import_module(name)
     finally:
         sys.path.remove(str(ROOT))
+
+
+def test_kernel_compare_alternates_its_pairs():
+    """``--pairs N``: each pair of turns in the order opposite to the one
+    before, so that a drift over the run falls on both trees alike; the
+    default two pairs are other, this, this, other."""
+    kernel_compare = _root_module("kernel_compare")
+    assert kernel_compare.turn_order(2) == [
+        ("other", 1), ("this", 1), ("this", 2), ("other", 2)]
+    order = kernel_compare.turn_order(10)
+    assert len(order) == 20
+    assert sorted(order) == sorted((tree, i) for i in range(1, 11)
+                                   for tree in ("other", "this"))
+    assert [tree for tree, _ in order[4:6]] == ["other", "this"]
+
+
+def test_kernel_compare_summary_takes_each_tree_median(capsys):
+    """``--summary``: a line is named by its words up to its first value,
+    and each tree's median is taken over its turns' readings."""
+    kernel_compare = _root_module("kernel_compare")
+    readings = {}
+    line = ("[kernel] fused_cg_update n=16384 max_abs_err=0.000e+00 "
+            "ms={ms} host_us_a_call={us} bits=0x1\n")
+    for label, ms, us in (("other 1", 0.05, 44.0), ("this 1", 0.03, 27.0),
+                          ("this 2", 0.02, 29.0), ("other 2", 0.06, 40.0),
+                          ("other 3", 0.04, 48.0), ("this 3", 0.03, 20.0)):
+        kernel_compare.record(label, line.format(ms=ms, us=us),
+                              ["host_us_a_call", "ms"], readings)
+    kernel_compare.record("this 3", "[kernel] other line\n", ["ms"],
+                          readings)
+    name = "[kernel] fused_cg_update n=16384"
+    assert set(readings) == {(name, "host_us_a_call"), (name, "ms")}
+    kernel_compare.print_summary(readings)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == (f"[summary] {name} host_us_a_call: median_other=44 "
+                      "median_this=27 turns: other 1=44 this 1=27 "
+                      "this 2=29 other 2=40 other 3=48 this 3=20")
+    assert "median_other=0.05 median_this=0.03" in out[1]
 
 
 def test_kernel_compare_matches_kernels_by_their_sass():
